@@ -1,0 +1,194 @@
+"""PESTO-style CNN pitch encoder (L3), port of ``sot_tpu/models/encoder.py``.
+
+  * LayerNorm over (channel, bins) with a per-element affine
+  * k=15 'same' conv1 + residual prefilt, then 1x1 convs 40 -> 30 -> 30 -> 10
+    -> 3, leaky-ReLU 0.3, dropout 0.5 before the last conv
+  * channel-major flatten into the heads
+  * ``ToeplitzLinear`` — a linear map constrained to a Toeplitz matrix
+    (in+out-1 parameters), applied as a gather-built matrix and one matmul
+  * 'frequency' logits (Toeplitz), 'weights' (n_modes harmonic amplitudes via
+    exp-sigmoid, dense), optional 'gain'
+
+Convolutions run in PyTorch's NCW layout. Parameters use PyTorch's default
+initialisation (U(+-1/sqrt(fan_in))), drawn from an optional explicit
+``torch.Generator``. ~46K parameters in the paper configuration.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sot_tpu_torch.ops.numerics import exp_sigmoid
+
+
+def _uniform_(p: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        p.uniform_(-bound, bound, generator=generator)
+
+
+class ToeplitzLinear(nn.Module):
+    """y[b, j] = sum_i x[b, i] * w[i - j + out - 1]."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.empty(in_features + out_features - 1))
+        idx = (torch.arange(in_features)[:, None] - torch.arange(out_features)[None, :]
+               + out_features - 1)
+        self.register_buffer("_index", idx, persistent=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _uniform_(self.weight, self.weight.numel(), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight[self._index]
+
+
+class PESTOEncoder(nn.Module):
+    """1D CNN over a single CQT frame -> dict of head outputs.
+
+    Input is [batch, n_bins_in] (a flattened (batch*time) of single-channel
+    frames).
+    """
+
+    def __init__(
+        self,
+        n_bins_in: int = 285,
+        output_size: int = 285,
+        n_modes: int = 20,
+        output_splits: Sequence[str] = ("frequency", "weights"),
+        harmonic: bool = True,
+        n_chan_layers: Sequence[int] = (40, 30, 30, 10, 3),
+        n_prefilt_layers: int = 2,
+        residual: bool = True,
+        kernel_size: int = 15,
+        a_lrelu: float = 0.3,
+        p_dropout: float = 0.5,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.n_bins_in = n_bins_in
+        self.output_size = output_size
+        self.n_modes = n_modes
+        self.output_splits = tuple(output_splits)
+        self.harmonic = harmonic
+        self.residual = residual
+        self.a_lrelu = a_lrelu
+        ch = list(n_chan_layers)
+        if len(ch) < 5:
+            ch.append(1)
+        pad = (kernel_size - 1) // 2
+
+        self.layernorm = nn.LayerNorm([1, n_bins_in], eps=1e-5)
+        self.conv1 = nn.Conv1d(1, ch[0], kernel_size, padding=pad)
+        self.prefilt = nn.ModuleList(
+            nn.Conv1d(ch[0], ch[0], kernel_size, padding=pad)
+            for _ in range(n_prefilt_layers - 1))
+        self.conv2 = nn.Conv1d(ch[0], ch[1], 1)
+        self.conv3 = nn.Conv1d(ch[1], ch[2], 1)
+        self.conv4a = nn.Conv1d(ch[2], ch[3], 1)
+        self.dropout = nn.Dropout(p_dropout)
+        self.conv4b = nn.Conv1d(ch[3], ch[4], 1)
+
+        feature_size = n_bins_in * ch[4]
+        if "frequency" in self.output_splits:
+            n_mean_outs = 1 if harmonic else n_modes
+            self.frequency = nn.ModuleList(
+                ToeplitzLinear(feature_size, output_size) for _ in range(n_mean_outs))
+        if "gain" in self.output_splits:
+            self.gain = nn.Linear(feature_size, 1)
+        if "weights" in self.output_splits:
+            self.weights = nn.Linear(feature_size, n_modes)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Torch-default init: weight and bias ~ U(+-1/sqrt(fan_in))."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv1d):
+                fan_in = m.in_channels * m.kernel_size[0]
+                _uniform_(m.weight, fan_in, generator)
+                _uniform_(m.bias, fan_in, generator)
+            elif isinstance(m, nn.Linear):
+                _uniform_(m.weight, m.in_features, generator)
+                _uniform_(m.bias, m.in_features, generator)
+            elif isinstance(m, ToeplitzLinear):
+                m.reset_parameters(generator)
+            elif isinstance(m, nn.LayerNorm):
+                m.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if x.ndim == 2:
+            x = x[:, None, :]  # [batch, 1, bins] (NCW)
+        act = lambda y: F.leaky_relu(y, negative_slope=self.a_lrelu)  # noqa: E731
+
+        x = self.layernorm(x)
+        x = act(self.conv1(x))
+        for conv in self.prefilt:
+            y = act(conv(x))
+            x = y + x if self.residual else y
+        x = act(self.conv2(x))
+        x = act(self.conv3(x))
+        x = act(self.conv4a(x))
+        x = self.dropout(x)
+        x = self.conv4b(x)
+
+        feat = x.reshape(x.shape[0], -1)  # channel-major flatten
+        outputs: Dict[str, torch.Tensor] = {}
+        if "frequency" in self.output_splits:
+            heads = [head(feat) for head in self.frequency]
+            outputs["frequency"] = heads[0] if len(heads) == 1 else torch.stack(heads, dim=1)
+        if "gain" in self.output_splits:
+            outputs["gain"] = exp_sigmoid(self.gain(feat)[..., 0])
+        if "weights" in self.output_splits:
+            outputs["weights"] = exp_sigmoid(self.weights(feat))
+        return outputs
+
+
+def predict_pitch(
+    logits: torch.Tensor,
+    estimation_type: str = "soft-argmax",
+    temperature: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+    kernel_std: float = 0.025,
+) -> Dict[str, torch.Tensor]:
+    """Normalised pitch in [0, 1] from frequency logits.
+
+    Args:
+      logits: [batch, out_size] or [batch, n_modes, out_size].
+    Returns dict with 'pitch_unit' (+ 'probabilities' for argmax heads).
+    """
+    if logits.ndim == 2:
+        logits = logits[:, None, :]  # keep the mode axis, as the reference does
+    seq_len = logits.shape[-1]
+    positions = torch.linspace(0.0, 1.0, seq_len, device=logits.device)
+
+    outputs: Dict[str, torch.Tensor] = {}
+    if estimation_type == "soft-argmax":
+        if mask is not None:
+            if mask.ndim == 2:
+                mask = mask[:, None, :]
+            logits = logits * mask + 1e-7
+        probabilities = torch.softmax(logits / temperature, dim=-1)
+        expectation = torch.sum(probabilities * positions, dim=-1)
+        outputs.update({"pitch_unit": expectation, "probabilities": probabilities})
+    elif estimation_type == "kernel-soft-argmax":
+        argmax_pos = torch.argmax(logits, dim=-1).to(torch.float32) / (seq_len - 1)
+        kernel = torch.exp(-((positions[None, None, :] - argmax_pos[..., None]) ** 2)
+                           / (2.0 * kernel_std ** 2))
+        kernel = kernel / torch.sum(kernel, dim=-1, keepdim=True)
+        probabilities = torch.softmax(kernel * logits / temperature, dim=-1)
+        expectation = torch.sum(probabilities * positions, dim=-1)
+        outputs.update({"pitch_unit": expectation, "probabilities": probabilities,
+                        "kernel": kernel})
+    elif estimation_type == "regression":
+        outputs["pitch_unit"] = torch.sigmoid(logits)[..., 0]
+    else:
+        raise ValueError(f"Unknown estimation_type: {estimation_type}")
+    return outputs

@@ -1,0 +1,121 @@
+"""Frame-rate -> sample-rate control upsampling (``sot_tpu/ops/resample.py``).
+
+Two methods, used by the synth:
+  * 'window'   — hann overlap-add upsampling for amplitude envelopes: with
+                 50% overlapping windows the OLA is one reshape + one add.
+  * 'bilinear' — ``F.interpolate`` parity (align_corners = not add_endpoint)
+                 for frequency envelopes.
+
+Both keep the reference's exact expressions — ``a_{j+1}*w_rise + a_j*w_fall``
+and ``x_lo + frac*(x_hi - x_lo)`` with ``frac`` computed in float64 on the
+host — because the synth kernel must reproduce these envelopes bit for bit
+(PERF.md, "The synth-kernel lesson"). 'bicubic' and 'nearest' are not
+ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from sot_tpu_torch.ops.windows import hann_window
+
+
+def upsample_with_windows(inputs: torch.Tensor, n_timesteps: int,
+                          add_endpoint: bool = True) -> torch.Tensor:
+    """Hann-window overlap-add upsample of [batch, n_frames, ch] to n_timesteps.
+
+    out_chunk[j] = a[j+1] * w[:hop] + a[j] * w[hop:], j = 0..n_intervals-1.
+    """
+    inputs = inputs.to(torch.float32)
+    if inputs.ndim != 3:
+        raise ValueError(f"upsample_with_windows expects 3D input, got {tuple(inputs.shape)}")
+    if add_endpoint:
+        inputs = torch.cat([inputs, inputs[:, -1:, :]], dim=1)
+
+    n_frames = inputs.shape[1]
+    n_intervals = n_frames - 1
+    if n_frames >= n_timesteps:
+        raise ValueError(
+            f"Upsample with windows cannot be used for downsampling "
+            f"(frames={n_frames}, timesteps={n_timesteps})")
+    if n_timesteps % n_intervals != 0:
+        raise ValueError(
+            f"n_timesteps ({n_timesteps}) must be divisible by n_intervals ({n_intervals})")
+
+    hop_size = n_timesteps // n_intervals
+    window = torch.from_numpy(hann_window(2 * hop_size)).to(inputs.device)
+
+    windowed = inputs[:, :, None, :] * window[None, None, :, None]
+    first = windowed[:, :, :hop_size, :]
+    second = windowed[:, :, hop_size:, :]
+    chunks = first[:, 1:, :, :] + second[:, :-1, :, :]
+    batch, _, _, ch = chunks.shape
+    return chunks.reshape(batch, n_timesteps, ch)
+
+
+def linear_taps(n_frames: int, n_timesteps: int, align_corners: bool
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(lo, hi, frac) of 1D linear interpolation, torch F.interpolate parity.
+
+    ``frac`` is computed in float64 and rounded once to float32. The tail
+    rows are clipped to lo = n-2, frac = 1.0 (not lo = n-1, frac = 0), which
+    the envelope's bits depend on.
+    """
+    if align_corners:
+        coords = np.linspace(0.0, n_frames - 1, n_timesteps, dtype=np.float64)
+    else:
+        scale = n_frames / n_timesteps
+        coords = (np.arange(n_timesteps, dtype=np.float64) + 0.5) * scale - 0.5
+        coords = np.clip(coords, 0.0, n_frames - 1)
+    lo = np.floor(coords).astype(np.int64)
+    lo = np.minimum(lo, n_frames - 2) if n_frames > 1 else np.zeros_like(lo)
+    frac = (coords - lo).astype(np.float32)
+    hi = np.minimum(lo + 1, n_frames - 1)
+    return lo, hi, frac
+
+
+def _interp_linear(inputs: torch.Tensor, n_timesteps: int,
+                   align_corners: bool) -> torch.Tensor:
+    """1D linear interpolation along axis 1."""
+    lo, hi, frac = linear_taps(inputs.shape[1], n_timesteps, align_corners)
+    dev = inputs.device
+    frac_t = torch.from_numpy(frac).to(dev)[None, :, None]
+    x_lo = inputs[:, torch.from_numpy(lo).to(dev), :]
+    x_hi = inputs[:, torch.from_numpy(hi).to(dev), :]
+    return x_lo + frac_t * (x_hi - x_lo)
+
+
+def resample(inputs: torch.Tensor, n_timesteps: int, method: str = "bilinear",
+             add_endpoint: bool = True) -> torch.Tensor:
+    """Resample framewise controls to n_timesteps.
+
+    Accepts [n_frames], [batch, n_frames] or [batch, n_frames, ch]; returns
+    the same rank at the new time resolution.
+    """
+    inputs = inputs.to(torch.float32)
+    is_1d, is_2d = inputs.ndim == 1, inputs.ndim == 2
+    if is_1d:
+        inputs = inputs[None, :, None]
+    elif is_2d:
+        inputs = inputs[:, :, None]
+
+    if method == "window":
+        outputs = upsample_with_windows(inputs, n_timesteps, add_endpoint)
+    elif method == "bilinear":
+        outputs = _interp_linear(inputs, n_timesteps, align_corners=not add_endpoint)
+    elif method in ("bicubic", "nearest"):
+        raise NotImplementedError(
+            f"resample method {method!r} is not ported yet (ROADMAP)")
+    else:
+        raise ValueError(
+            f"Method ({method}) is invalid. Must be one of "
+            f"['nearest', 'bilinear', 'bicubic', 'window'].")
+
+    if is_1d:
+        return outputs[0, :, 0]
+    if is_2d:
+        return outputs[:, :, 0]
+    return outputs
