@@ -2,7 +2,9 @@
 
 ``params_from_flax`` maps the JAX package's parameter tree (nested dicts of
 numpy arrays, with or without the top-level ``"params"`` key) onto the
-port's ``state_dict``; ``params_to_flax`` is its inverse. Layouts:
+port's ``state_dict``; ``params_to_flax`` is its inverse, and
+``grads_to_flax`` maps the parameters' ``.grad`` the same way, so gradients
+compare per flax leaf. Layouts:
 
   flax                              torch
   LayerNorm_0/{scale,bias} (285, 1)  layernorm.{weight,bias}  (1, 285)
@@ -66,6 +68,18 @@ def flax_tree_from_flat(flat: Mapping[str, np.ndarray], prefix: str = "params"
     return {prefix: tree}
 
 
+def flat_from_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested tree -> {"conv1/Conv_0/kernel": array, ...}: the inverse of
+    ``flax_tree_from_flat`` (keys below ``prefix``)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flat_from_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
 def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     p: Dict[str, Any] = {}
     for key, value in state_dict.items():
@@ -91,3 +105,10 @@ def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             raise KeyError(f"unknown state_dict key {key!r}")
     return {"params": {k: p[k] for k in sorted(p)}}
+
+
+def grads_to_flax(module: torch.nn.Module) -> Dict[str, Any]:
+    """The module's parameter gradients as a flax tree (zeros where a
+    parameter has no gradient)."""
+    return params_to_flax({name: torch.zeros_like(p) if p.grad is None else p.grad
+                           for name, p in module.named_parameters()})

@@ -7,17 +7,35 @@
   * signals rendered by the frozen Sinusoidal synth on the chosen device
     (the CUDA synth kernel on the card), 16 constant control frames
   * per-item peak normalisation x0.9
+  * train/val/test random split (70/20/10), sequential peak-normalised
+    batches
+
+The training loop keeps a split resident on the device and slices batches
+by offset (``training/trainer.train_steps``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sot_tpu_torch.device import DeviceLike, resolve_device
 from sot_tpu_torch.models.synths import Sinusoidal
+
+
+@dataclasses.dataclass
+class SplitArrays:
+    """One split: signals plus ground-truth params (metrics only, never loss)."""
+
+    x: np.ndarray          # [n, n_samples]
+    frequency: np.ndarray  # [n, n_freqs]
+    weights: np.ndarray    # [n, n_sinusoids]
+
+    def __len__(self) -> int:
+        return len(self.x)
 
 
 def peak_normalize(x: np.ndarray, scale: float = 0.9) -> np.ndarray:
@@ -83,3 +101,60 @@ def generate_sinusoid_dataset(
             out = synth(torch.from_numpy(a).to(device), torch.from_numpy(f).to(device))
             signals[start:end] = out.cpu().numpy()
     return signals, freqs, amplitudes
+
+
+def random_split(signals: np.ndarray, freqs: np.ndarray, amplitudes: np.ndarray,
+                 eval_split: float = 0.2, test_split: Optional[float] = 0.1,
+                 seed: int = 0) -> Dict[str, SplitArrays]:
+    """Random train/val(/test) split."""
+    size = len(signals)
+    perm = np.random.default_rng(seed).permutation(size)
+    n_test = int(test_split * size) if test_split is not None else 0
+    n_val = int(eval_split * size)
+    n_train = int((1 - eval_split - (test_split or 0.0)) * size)
+
+    def take(idx):
+        return SplitArrays(signals[idx], freqs[idx], amplitudes[idx])
+
+    splits = {"train": take(perm[:n_train]), "val": take(perm[n_train:n_train + n_val])}
+    if test_split is not None:
+        splits["test"] = take(perm[n_train + n_val:n_train + n_val + n_test])
+    return splits
+
+
+def make_dataset(seed: int = 0, device: DeviceLike = None, **kwargs) -> Dict[str, SplitArrays]:
+    signals, freqs, amps = generate_sinusoid_dataset(seed=seed, device=device, **kwargs)
+    return random_split(signals, freqs, amps, seed=seed)
+
+
+def dataset_from_config(cfg, device: DeviceLike = None) -> Dict[str, SplitArrays]:
+    """Splits for an ExperimentConfig, generated with the config's full
+    generation parameters. Loading the released ``.pth`` dataset
+    (``cfg.dataset_path``) comes with the evaluation slice: it raises."""
+    if cfg.dataset_path:
+        return load_pth_dataset(cfg.dataset_path)
+    return make_dataset(
+        seed=cfg.data_seed, device=device, freq_gen_min=cfg.freq_gen_min,
+        freq_gen_max=cfg.freq_gen_max, n_samples=cfg.n_samples,
+        sample_rate=cfg.sample_rate, amplitude_min=cfg.amplitude_min,
+        amplitude_max=cfg.amplitude_max, size=cfg.dataset_size,
+        n_sinusoids=cfg.n_sinusoids, n_sinusoids_min=cfg.n_sinusoids_min,
+        mask_rand_amplitudes=cfg.mask_rand_amplitudes)
+
+
+def load_pth_dataset(path: str) -> Dict[str, SplitArrays]:
+    raise NotImplementedError(
+        f"load_pth_dataset({path!r}): importing the released .pth dataset comes "
+        "with the evaluation slice, which is not ported yet (ROADMAP)")
+
+
+def iterate_batches(split: SplitArrays, batch_size: int,
+                    drop_last: bool = False) -> Iterator[Dict[str, np.ndarray]]:
+    """Sequential batches with peak-normalised signals (no per-epoch shuffle)."""
+    n = len(split)
+    stop = n - (n % batch_size) if drop_last else n
+    for start in range(0, stop, batch_size):
+        end = min(start + batch_size, n)
+        yield {"x": peak_normalize(split.x[start:end]),
+               "frequency": split.frequency[start:end],
+               "weights": split.weights[start:end]}

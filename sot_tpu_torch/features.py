@@ -1,11 +1,11 @@
-"""Feature transforms (L2): CQT and identity with frequency metadata
+"""Feature transforms (L2): STFT, CQT and identity with frequency metadata
 (``sot_tpu/features.py``).
 
 Every transform is a small hashable config object exposing
   * ``__call__(audio)`` -> (batch, time, freq) features
   * ``get_frequencies()`` -> np.ndarray of bin centre frequencies in Hz
 
-``STFT`` (the loss-domain transform) comes with the training slice.
+The CQT is the encoder's input; the STFT is the loss domain.
 """
 
 from __future__ import annotations
@@ -18,6 +18,31 @@ import torch
 
 from sot_tpu_torch.ops.cqt import cqt_frequencies, cqt_magnitude
 from sot_tpu_torch.ops.numerics import safe_log
+from sot_tpu_torch.ops.stft import rfft_frequencies, stft_magnitude
+
+
+@dataclasses.dataclass(frozen=True)
+class STFT:
+    """Magnitude STFT, time-major."""
+
+    n_fft: int = 1024
+    hop_length: int = 256
+    sample_rate: int = 16000
+    window: Optional[str] = None  # None -> hann; 'flattop' for the SOT loss domain
+    log: bool = False
+
+    def __call__(self, audio: torch.Tensor, reduce: bool = False,
+                 log: bool = False) -> torch.Tensor:
+        x = stft_magnitude(audio, size=self.n_fft,
+                           overlap=1.0 - self.hop_length / self.n_fft, window=self.window)
+        if reduce:
+            x = torch.mean(x, dim=1)
+        if log or self.log:
+            x = safe_log(x)
+        return x
+
+    def get_frequencies(self) -> np.ndarray:
+        return rfft_frequencies(self.n_fft, self.sample_rate)
 
 
 @dataclasses.dataclass(frozen=True)

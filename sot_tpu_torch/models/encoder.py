@@ -5,13 +5,16 @@
     -> 3, leaky-ReLU 0.3, dropout 0.5 before the last conv
   * channel-major flatten into the heads
   * ``ToeplitzLinear`` — a linear map constrained to a Toeplitz matrix
-    (in+out-1 parameters), applied as a gather-built matrix and one matmul
+    (in+out-1 parameters), built as reversed sliding windows of the weight
+    vector and applied with one matmul
   * 'frequency' logits (Toeplitz), 'weights' (n_modes harmonic amplitudes via
     exp-sigmoid, dense), optional 'gain'
 
 Convolutions run in PyTorch's NCW layout. Parameters use PyTorch's default
 initialisation (U(+-1/sqrt(fan_in))), drawn from an optional explicit
-``torch.Generator``. ~46K parameters in the paper configuration.
+``torch.Generator``. ~46K parameters in the paper configuration. Dropout
+draws its masks from the generator set on ``encoder.dropout.generator``
+(the trainer seeds one on the device from the config's seed).
 """
 
 from __future__ import annotations
@@ -32,6 +35,24 @@ def _uniform_(p: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]
         p.uniform_(-bound, bound, generator=generator)
 
 
+class GeneratorDropout(nn.Module):
+    """Inverted dropout whose mask comes from ``self.generator`` (a
+    ``torch.Generator`` on the input's device, or None for the default one):
+    where(keep, x / (1 - p), 0) in training mode, identity in eval mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, device=x.device, generator=self.generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class ToeplitzLinear(nn.Module):
     """y[b, j] = sum_i x[b, i] * w[i - j + out - 1]."""
 
@@ -40,15 +61,15 @@ class ToeplitzLinear(nn.Module):
         self.in_features = in_features
         self.out_features = out_features
         self.weight = nn.Parameter(torch.empty(in_features + out_features - 1))
-        idx = (torch.arange(in_features)[:, None] - torch.arange(out_features)[None, :]
-               + out_features - 1)
-        self.register_buffer("_index", idx, persistent=False)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         _uniform_(self.weight, self.weight.numel(), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight[self._index]
+        # the matrix as sliding windows of w, reversed: [i, j] = w[i + out - 1 - j].
+        # unfold's backward sums each weight's windows in a fixed order, where an
+        # indexed gather's backward accumulates in a thread-dependent order.
+        return x @ self.weight.unfold(0, self.out_features, 1).flip(1)
 
 
 class PESTOEncoder(nn.Module):
@@ -94,7 +115,7 @@ class PESTOEncoder(nn.Module):
         self.conv2 = nn.Conv1d(ch[0], ch[1], 1)
         self.conv3 = nn.Conv1d(ch[1], ch[2], 1)
         self.conv4a = nn.Conv1d(ch[2], ch[3], 1)
-        self.dropout = nn.Dropout(p_dropout)
+        self.dropout = GeneratorDropout(p_dropout)
         self.conv4b = nn.Conv1d(ch[3], ch[4], 1)
 
         feature_size = n_bins_in * ch[4]

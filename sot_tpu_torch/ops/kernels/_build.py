@@ -41,7 +41,8 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and the shared headers it may include
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(ARCH_FLAGS + COMMON_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -14,7 +14,9 @@ matrix in device memory), in f32 with f32 accumulation, split over K with a
 fixed-order reduction; see the source for the design notes.
 
 On a CPU tensor ``cqt_project`` runs ``cqt_project_plain``; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises. The kernel has no backward (the CQT's input
+is data on every ported path), so on a CUDA input that requires a gradient
+under grad mode it raises rather than return a result cut from the graph.
 """
 
 from __future__ import annotations
@@ -70,6 +72,9 @@ def cqt_project(xpad: torch.Tensor, bank: torch.Tensor, hop: int, n_frames: int,
         raise ValueError(f"cqt_project: tensors on {xpad.device} / {bank.device}")
     if xpad.dtype != torch.float32 or bank.dtype != torch.float32:
         raise TypeError("cqt_project: the CUDA kernel takes float32 audio and bank")
+    if torch.is_grad_enabled() and (xpad.requires_grad or bank.requires_grad):
+        raise RuntimeError("cqt_project: the CUDA kernel has no backward; its inputs "
+                           "must not require a gradient")
     if xpad.ndim != 2 or bank.ndim != 2:
         raise ValueError("cqt_project: expected xpad [B, T] and bank [W, N]")
     if not (xpad.is_contiguous() and bank.is_contiguous()):

@@ -127,6 +127,13 @@ def get_cqt_n_bins(sr: int, fmin: float, bins_per_semitone: int = 3) -> int:
     return max_semitones * bins_per_semitone
 
 
+def pad_for_stft_length(signal_len: int, frame_size: int, hop_length: int) -> int:
+    """Samples of right-padding for tf-style ``pad_end=True`` framing:
+    num_frames = ceil(len / hop), padded so the last window fits."""
+    num_frames = -(-signal_len // hop_length)
+    return max(0, frame_size + hop_length * (num_frames - 1) - signal_len)
+
+
 def get_fn_by_name(name: Optional[Union[str, Callable]], **kwargs) -> Optional[Callable]:
     """Scaling-function registry."""
     if callable(name):
