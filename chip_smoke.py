@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the SOT-2048 serving
-path (predict) and the SOT-2048 train step.
+path (predict), the SOT-2048 train step, and the SOT-512 family's train
+step and evaluation.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
-  2. build   — compile csrc/{cqt,synth,merge,refgrad}.cu (sm_90a) in parallel:
-               five kernels (synth.cu holds the forward and the backward)
+  2. build   — compile csrc/{cqt,synth,merge,refgrad,plane}.cu (sm_90a) in
+               parallel: seven kernels (synth.cu and plane.cu hold a forward
+               and a backward each)
   3. kernels — each slice-1 kernel against its plain PyTorch version on the
                card at the serving shapes: CQT [64, 4095] -> [64, 16, 570]
                within max|d|/max|ref| <= 1e-4 (f32 vs f32, TF32 off,
@@ -25,14 +27,24 @@ Phases (any failure raises and the script exits non-zero):
                over exactly these requests; then a window of 32 more
                requests whose rate is all clips over the summed request
                time; a torch.profiler breakdown of one more request
-  6. kernels — the three train-step kernels against their plain versions on
-               the card: the merge coupling (S per-row rel err <= 1e-5) and
-               the reference-convention beta gradient (max|d| <= 2e-5 *
+  6. kernels — the train-step kernels against their plain versions on the
+               card: the merge coupling (S per-row rel err <= 1e-5) and the
+               reference-convention beta gradient (max|d| <= 2e-5 *
                max|ref|, kinks included, share of bit-equal elements
                printed) on the SOT rows of 64 clips through the trained
                model (1024 rows x 1025 bins); the synth backward from a
                random audio cotangent at [64, 16, 20] (d amplitudes <= 1e-4
-               and d frequencies <= 1e-3 of their max)
+               and d frequencies <= 1e-3 of their max); the banded-plane
+               forward and backward (kernels 6 and 7, alpha_grads both ways,
+               p = 2 and 3) bit for bit on dyadic rows at [1024, 258] and
+               [1024, 1026], within PLANE_LIMITS on the SOT-512 golden's real
+               rows, random sorted rows at [1024, 1026] and unsorted rows;
+               on the golden's rows kernel 7's beta cotangent against kernel
+               5's and JAX's _pallas_bwd, and the W of kernels 4 and 6
+               against JAX's (SOT_ROW_LIMITS); [timing] of kernels 4-7 at
+               [1024, 258] and 6-7 at [1024, 1026] (CUDA events and the
+               profiler's device time), the A/B of the two SOT-512 backward
+               routes (kernel 5 against kernel 7)
   7. train-golden — sot_tpu_torch/golden/sot2048_seed42_trainstep.npz (JAX
                on the CPU with the shipped kernel gates), eval mode, the
                golden's 16 clips: the merge and refgrad kernels on the
@@ -47,16 +59,29 @@ Phases (any failure raises and the script exits non-zero):
                port's compute_loss on the card against the port on the
                CPU, the readings the limits rest on; then five deliberately
                wrong gradients, each of which some gate must reject
-  8. train   — the config's dataset generated on the card by the port's data
-               module, 4 train steps at batch 64 in train mode (dropout,
-               Adam): launch counts of all five kernels, finite loss and
-               grad_norm, changed parameters; then a window of 32 more steps
-               (median step ms, train frames/s over the summed step time);
-               a torch.profiler breakdown of one more step
+  8. train-golden-512 — the same for sot512_seed42_trainstep.npz (SOT-512,
+               its committed seed-42 weights, the hybrid route: the merge
+               forward and kernel 7), limits GRAD_LIMITS_512 and
+               LEAF_COSINE_512, and four controls (the synth's three and
+               kernel 7's beta cotangent 10% low)
+  9. eval-512 — the port's evaluate with the SOT-512 weights on the predict
+               golden's 64 clips against JAX's stored metrics: LSD, MSE,
+               MSS and the loss terms within EVAL_REL, the pitch accuracies
+               and the octave difference within one frame
+ 10. train   — the config's dataset generated on the card by the port's data
+               module, train steps at batch 64 in train mode (dropout,
+               Adam), each run's launch counts showing its SOT route, finite
+               loss and grad_norm, changed parameters: SOT-2048 (auto: ref,
+               kernels 4 + 5) and SOT-512 (auto: hybrid, kernels 4 + 7) 4
+               steps then a window of 32 more (median step ms, train
+               frames/s over the summed step time) and a torch.profiler
+               breakdown of one more; SOT-512-LogF (hybrid) and SOT-2048
+               under kernels="default" (plane, kernels 6 + 7) 4 steps each
 
 Kernel, plain and library timings use CUDA events on inputs that change
-between iterations. The last three lines are the per-kernel JSON, the card
-(nvidia-smi name, power.limit) and {"ok": true, "device": {...}}.
+between iterations. The last three lines are the per-kernel JSON (each
+kernel's launches from the run whose route it is on), the card (nvidia-smi
+name, power.limit) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -83,6 +108,7 @@ from sot_tpu_torch.ops.cqt import cqt_bank
 from sot_tpu_torch.ops.kernels import _build
 from sot_tpu_torch.ops.kernels import cqt as kcqt
 from sot_tpu_torch.ops.kernels import merge as kmerge
+from sot_tpu_torch.ops.kernels import plane as kplane
 from sot_tpu_torch.ops.kernels import refgrad as krefgrad
 from sot_tpu_torch.models import synths as synths_lib
 from sot_tpu_torch.ops import wasserstein as wasserstein_lib
@@ -96,6 +122,7 @@ from sot_tpu_torch.training.trainer import build_modules, predict
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot2048_seed42_predict.npz")
 GOLDEN_TRAIN = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot2048_seed42_trainstep.npz")
+GOLDEN_512 = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot512_seed42_trainstep.npz")
 
 # H100 SXM data sheet (dense): FP32 on the CUDA cores, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -137,6 +164,23 @@ SOT_ROW_LIMITS = (3e-5, 2e-5)
 # the composed kernels against the CPU from identical synth controls: d
 # amplitudes and d frequencies, max|d| over their max
 COMPOSED_LIMIT = 2e-3
+# [train-golden-512]: the same gates for the SOT-512 golden (the hybrid
+# route: merge forward, banded-plane backward), ~2x the card's readings
+# (worst leaf 1.809e-02 / 6.727e-03 / 1.819e-02 for W1D / MSS / total, least
+# cosine 0.999971 / 0.999990 / 0.999943): SOT-512's W1D gradient is far less
+# sensitive to the card's rounding than SOT-2048's
+GRAD_LIMITS_512 = {"w1d": 0.04, "mss": 0.015, "total": 0.04}
+LEAF_COSINE_512 = {"w1d": 0.9995, "mss": 0.9998, "total": 0.9995}
+# kernels 6 and 7 against their plain versions on rows that are not dyadic:
+# W per row and the cotangents over their max. Both sum the same f32 cell
+# products in float64 and round once, so only the order of the float64 sums
+# differs.
+PLANE_LIMITS = (1e-6, 1e-6)
+# [eval-512] against JAX's metrics: LSD, MSE, MSS and the loss terms within
+# EVAL_REL relative; the pitch accuracies and the octave difference within
+# one frame of the 64 x 16
+EVAL_REL = 1e-3
+EVAL_FRAME = 1.0 / (BATCH * 16)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -156,6 +200,27 @@ def roofline(flops: float, bytes_moved: float):
     and the bytes over the memory rate."""
     ops_s, bytes_s = flops / PEAK_FP32_FLOPS, bytes_moved / PEAK_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def device_ms(fn, inputs, kernel: str) -> float:
+    """Mean device time per call of the CUDA kernels whose name contains
+    ``kernel`` (torch.profiler, TIMING_ITERS calls cycling through
+    ``inputs``): the kernel alone, without the host's launch gap that a
+    CUDA-event time of a microsecond kernel includes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in inputs[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(TIMING_ITERS):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    require(len(us) == TIMING_ITERS, f"the profiler saw {len(us)} {kernel} launches")
+    return sum(us) / 1e3 / TIMING_ITERS
 
 
 def median_ms(fn, inputs) -> float:
@@ -399,18 +464,19 @@ def cosine(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-300))
 
 
-def sot_rows_errors(g, dev):
-    """The merge and refgrad kernels on the clipped CDFs of real SOT rows
-    (JAX's spectra: identical inputs, where the gradient convention must
-    match exactly) against the JAX Pallas kernels' outputs (interpret mode,
-    CPU): W's max|d| over the largest marginal term, the beta cotangent's
+def sot_rows_errors(g, dev, route):
+    """The route's SOT kernels (the merge forward, and kernel 5 for ``ref``
+    or kernel 7 for ``hybrid``) on the clipped CDFs of real SOT rows (JAX's
+    spectra: identical inputs, where the gradient convention must match
+    exactly) against the JAX Pallas kernels' outputs (interpret mode, CPU):
+    W's max|d| over the largest marginal term, the beta cotangent's
     max|d|/max, and the cotangent's bit-equal share."""
     alpha, beta, gaug = (torch.from_numpy(g[k]).to(dev)
                          for k in ("sot_alpha", "sot_beta", "sot_gaug"))
     rows = alpha.shape[0]
     w = kmerge.sot_w2_merge(alpha, beta, gaug).cpu().numpy()
-    db = krefgrad.ref_grad_beta(alpha, beta, gaug,
-                                torch.full((rows,), 1.0 / rows, device=dev)).cpu().numpy()
+    db = route_grad_beta(alpha, beta, gaug, torch.full((rows,), 1.0 / rows, device=dev),
+                         route).cpu().numpy()
     a, b, x2 = g["sot_alpha"], g["sot_beta"], g["sot_gaug"] ** 2
     marg = ((a - np.pad(a, ((0, 0), (1, 0)))[:, :-1]) @ x2
             + (b - np.pad(b, ((0, 0), (1, 0)))[:, :-1]) @ x2)
@@ -434,9 +500,11 @@ def loss_and_grads(mod, x):
     return losses, grads, dx_hat.detach(), out
 
 
-def leaf_readings(grads, g):
+def leaf_readings(grads, g, limits):
     """{term: {flax leaf: (max|d|/max, cosine)}} against the golden's JAX
-    gradients, and the [(term, leaf)] outside the limits."""
+    gradients, and the [(term, leaf)] outside ``limits`` (GRAD_LIMITS-like,
+    LEAF_COSINE-like)."""
+    grad_limits, leaf_cosine = limits
     readings, misses = {}, []
     for tag in GRAD_TERMS:
         readings[tag] = {}
@@ -445,7 +513,7 @@ def leaf_readings(grads, g):
             require(got.shape == ref.shape and bool(np.isfinite(got).all()),
                     f"gradient {tag}/{name}: shape or non-finite")
             e, c = readings[tag][name] = (max_rel(got, ref), cosine(got, ref))
-            if e > GRAD_LIMITS[tag] or c < LEAF_COSINE[tag]:
+            if e > grad_limits[tag] or c < leaf_cosine[tag]:
                 misses.append((tag, name))
     return readings, misses
 
@@ -474,7 +542,7 @@ def loss_terms_from_audio(mod, x, x_hat, keep=None):
                          clipped_cdfs(grid, u, v, fn.limit_quantile_range)[:2])
         w = wasserstein_lib.wasserstein_same_grid(
             grid, u, v, p=fn.p, limit_quantile_range=fn.limit_quantile_range,
-            target_constant=fn.target_constant)
+            target_constant=fn.target_constant, kernels=fn.kernels)
         terms[kind] = weight * torch.mean(w if keep is None else w * keep)
     return terms, cdfs
 
@@ -493,8 +561,8 @@ def composed_grads(mod, x, amps, freqs):
 
 
 def composed_check(mod, mod_cpu, x_cpu, out_cpu):
-    """The three train-step kernels composed (synth forward and backward,
-    merge coupling, refgrad) with cuFFT on the card, from the synth controls
+    """The train-step kernels composed (synth forward and backward, merge
+    coupling, the route's SOT backward) with cuFFT on the card, from the synth controls
     of the port's CPU forward, against the same function on the CPU. Returns
     a function giving (d amplitudes, d frequencies) max|d|/max."""
     amps, freqs = synth_controls_of(mod_cpu, out_cpu)
@@ -522,27 +590,39 @@ def scaled_grad(t: torch.Tensor, s: float) -> torch.Tensor:
     return t
 
 
-def grad_controls():
+def grad_controls(route):
     """(name, [(module, attribute)], replacement) of deliberately wrong
-    gradients; a gate of the train-golden phase must reject each."""
+    gradients for the SOT route's kernels; a gate of the train-golden phase
+    must reject each."""
     synth = synths_lib.synth_render
-    sot = krefgrad.ref_grad_beta
     on_synth = [(synths_lib, "synth_render")]
-    on_sot = [(krefgrad, "ref_grad_beta"), (wasserstein_lib, "ref_grad_beta")]
-    return [
+    controls = [
         ("synth d frequencies zeroed", on_synth,
          lambda a, f, t, sr: synth(a, f.detach(), t, sr)),
         ("synth d amplitudes zeroed", on_synth,
          lambda a, f, t, sr: synth(a.detach(), f, t, sr)),
         ("synth d frequencies 10% low", on_synth,
          lambda a, f, t, sr: synth(a, scaled_grad(f, 0.9), t, sr)),
-        ("SOT beta gradient 10% low", on_sot,
-         lambda al, be, g, w: 0.9 * sot(al, be, g, w)),
-        ("SOT beta gradient with one-sided ties", on_sot, tie_free_grad_beta),
     ]
+    if route == "ref":
+        sot = krefgrad.ref_grad_beta
+        on_sot = [(krefgrad, "ref_grad_beta"), (wasserstein_lib, "ref_grad_beta")]
+        return controls + [
+            ("SOT beta gradient 10% low", on_sot,
+             lambda al, be, g, w: 0.9 * sot(al, be, g, w)),
+            ("SOT beta gradient with one-sided ties", on_sot, tie_free_grad_beta),
+        ]
+    plane_bwd = kplane.sot_plane_backward
+
+    def low(al, be, g, p, w, alpha_grads):
+        da, db = plane_bwd(al, be, g, p, w, alpha_grads)
+        return da, 0.9 * db
+
+    on_plane = [(kplane, "sot_plane_backward"), (wasserstein_lib, "sot_plane_backward")]
+    return controls + [("kernel 7 beta cotangent 10% low", on_plane, low)]
 
 
-def compare_devices(cfg, card, cpu):
+def compare_devices(cfg, card, cpu, phase, route):
     """Readings of the port's compute_loss on the card against the same on
     the CPU, the readings the per-leaf limits against JAX rest on: per-leaf
     gradient differences, the rows whose quantile cap differs, where
@@ -554,7 +634,7 @@ def compare_devices(cfg, card, cpu):
     for tag in GRAD_TERMS:
         errs = {k: max_rel(card_grads[tag][k], cpu_grads[tag][k]) for k in cpu_grads[tag]}
         worst = max(errs, key=errs.get)
-        print(f"[train-golden] card vs CPU (the port on both), {tag}: max|d|/max worst {worst} "
+        print(f"[{phase}] card vs CPU (the port on both), {tag}: max|d|/max worst {worst} "
               f"{errs[worst]:.3e}; per leaf "
               + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errs.items())))
 
@@ -583,7 +663,7 @@ def compare_devices(cfg, card, cpu):
     keep = torch.from_numpy((d <= 1e-6).astype(np.float32))
     kept = per_clip(sot_dx(mod, x, card_out["x_hat"], keep.to(x.device))[0],
                     sot_dx(mod_cpu, x_cpu, cpu_out["x_hat"], keep)[0])
-    print(f"[train-golden] card vs CPU: quantile cap differs on {np.count_nonzero(d)} of "
+    print(f"[{phase}] card vs CPU: quantile cap differs on {np.count_nonzero(d)} of "
           f"{len(d)} rows, by more than 1e-6 rel on {len(jump)} (largest {d.max():.3e}), rows "
           f"(clip, frame) {[(r // frames, r % frames) for r in jump]}; dL_W1D/dx_hat "
           f"max|d|/max {clips.max():.3e} on clip {top} (its frames with a cap jump: "
@@ -594,7 +674,7 @@ def compare_devices(cfg, card, cpu):
     shift = np.abs(clip_bin(cdfs_card).astype(np.int64) - clip_bin(cdfs_cpu))
     x_hat_cpu = card_out["x_hat"].detach().cpu()
     same = per_clip(dx_card, sot_dx(mod_cpu, x_cpu, x_hat_cpu)[0])
-    print(f"[train-golden] card vs CPU: x_hat max|d|/max per clip max "
+    print(f"[{phase}] card vs CPU: x_hat max|d|/max per clip max "
           f"{per_clip(x_hat_cpu.numpy(), cpu_out['x_hat'].detach().numpy()).max():.3e}; the "
           f"bin where beta reaches the cap moves on {np.count_nonzero(shift)} rows, by up to "
           f"{shift.max()} bins ({shift.reshape(-1, frames)[top].max()} on clip {top}); "
@@ -611,7 +691,7 @@ def compare_devices(cfg, card, cpu):
             sx, sy = m.transform(xx), m.transform(card_out["x_hat"].detach().to(xx.device))
             u, v = w1d.normalize(sx.reshape(-1, sx.shape[-1]), sy.reshape(-1, sy.shape[-1]))
             alpha, beta, gaug = clipped_cdfs(grid, u, v, w1d.limit_quantile_range)
-            db = krefgrad.ref_grad_beta(alpha, beta, gaug, torch.full_like(alpha[:, 0], 1.0))
+            db = route_grad_beta(alpha, beta, gaug, torch.full_like(alpha[:, 0], 1.0), route)
             tie = (torch.searchsorted(alpha, beta, right=True)
                    > torch.searchsorted(alpha, beta, right=False))
             vne = beta[:, 1:] > beta[:, :-1]
@@ -623,7 +703,7 @@ def compare_devices(cfg, card, cpu):
     row_err = np.abs(db_d - db_c).max(-1) / np.abs(db_c).max()
     worst = int(np.argmax(row_err))
     moved = np.nonzero(row_err > 1e-3)[0]
-    print(f"[train-golden] card vs CPU, the SOT rows of the card's x_hat: the beta cotangent "
+    print(f"[{phase}] card vs CPU, the SOT rows of the card's x_hat: the beta cotangent "
           f"differs by more than 1e-3 of its max on {len(moved)} rows of "
           f"{len(np.unique(moved // frames))} clips; worst row (clip, frame) "
           f"{(worst // frames, worst % frames)}: {row_err[worst]:.3e}, its beta "
@@ -640,7 +720,7 @@ def compare_devices(cfg, card, cpu):
     ka, kf = ksynth.synth_backward(a_cpu.to(x.device), f_cpu.to(x.device),
                                    cpu_dx.to(x.device).contiguous(), cfg.n_samples,
                                    cfg.sample_rate)
-    print(f"[train-golden] card vs CPU: synth controls max|d|/max amplitudes "
+    print(f"[{phase}] card vs CPU: synth controls max|d|/max amplitudes "
           f"{max_rel(a_card, a_cpu):.3e}, frequencies {max_rel(f_card, f_cpu):.3e}; the plain "
           f"synth VJP on the CPU, one cotangent, on the card's controls against the CPU's: "
           f"d amplitudes {max_rel(da2, da):.3e}, d frequencies {max_rel(df2, df):.3e} of their "
@@ -648,11 +728,15 @@ def compare_devices(cfg, card, cpu):
           f"VJP: d amplitudes {max_rel(ka, da):.3e}, d frequencies {max_rel(kf, df):.3e}")
 
 
-def train_golden_gates(g, dev, mod, x, composed):
+def route_bwd_name(route: str) -> str:
+    return "refgrad" if route == "ref" else "plane backward"
+
+
+def train_golden_gates(g, dev, mod, x, composed, limits, route):
     """Every gate of the phase: {gate: (passed, readings)}."""
-    err_w, err_db, share = sot_rows_errors(g, dev)
+    err_w, err_db, share = sot_rows_errors(g, dev, route)
     _, grads, _, _ = loss_and_grads(mod, x)
-    readings, misses = leaf_readings(grads, g)
+    readings, misses = leaf_readings(grads, g, limits)
     err_a, err_f = composed()
     return {
         "SOT kernels on JAX's rows": (
@@ -668,24 +752,28 @@ def train_golden_gates(g, dev, mod, x, composed):
     }
 
 
-def check_train_golden(cfg, dev):
+def check_train_golden(cfg, dev, golden=GOLDEN_TRAIN, weights=GOLDEN,
+                       limits=(GRAD_LIMITS, LEAF_COSINE), phase="train-golden"):
     """The train step's gradient on ``dev`` against the JAX CPU golden and
-    the port on the CPU (eval mode, the golden's 16 clips): the SOT kernels
-    on JAX's rows, the loss and its two terms, the gradient of each term per
-    parameter leaf, the composed kernels; on the card, the readings against
-    the port on the CPU; then every control must fail a gate."""
-    with np.load(GOLDEN_TRAIN) as z:
+    the port on the CPU (eval mode, the golden's 16 clips): the SOT route's
+    kernels on JAX's rows, the loss and its two terms, the gradient of each
+    term per parameter leaf within ``limits``, the composed kernels; on the
+    card, the readings against the port on the CPU; then every control must
+    fail a gate. ``weights``: the npz holding the model's parameters."""
+    with np.load(golden) as z:
         g = {k: z[k] for k in z.files}
-    print(f"[train-golden] {g['x'].shape[0]} clips, JAX gates {g['gates']}")
+    route = wasserstein_lib.w2_route(int(g["sot_alpha"].shape[1]) - 1)
+    print(f"[{phase}] {cfg.name}, {g['x'].shape[0]} clips, JAX gates {g['gates']}; the "
+          f"port's SOT route {route!r}")
     mod = build_modules(cfg, device=dev)
-    load_golden_weights(mod)
+    load_golden_weights(mod, weights)
     mod_cpu = build_modules(cfg, device="cpu")
-    load_golden_weights(mod_cpu)
+    load_golden_weights(mod_cpu, weights)
     x_cpu = torch.from_numpy(g["x"])
     x = x_cpu.to(dev)
 
-    err_w, err_db, share = sot_rows_errors(g, dev)
-    print(f"[train-golden] SOT kernels on the CDFs of JAX's spectra, {g['sot_alpha'].shape[0]} "
+    err_w, err_db, share = sot_rows_errors(g, dev, route)
+    print(f"[{phase}] SOT kernels on the CDFs of JAX's spectra, {g['sot_alpha'].shape[0]} "
           f"real rows x {g['sot_alpha'].shape[1]}: W max|d|/max(marginals) {err_w:.3e} (limit "
           f"{SOT_ROW_LIMITS[0]}); beta cotangent max|d|/max {err_db:.3e} (limit "
           f"{SOT_ROW_LIMITS[1]}), bit-equal share {share:.6f}")
@@ -693,15 +781,15 @@ def check_train_golden(cfg, dev):
             "SOT kernels disagree with JAX on real rows")
 
     losses, grads, dx, out = loss_and_grads(mod, x)
-    readings, misses = leaf_readings(grads, g)
+    readings, misses = leaf_readings(grads, g, limits)
     for tag, r in readings.items():
         ref_loss = float(g[f"loss_{tag}"])
         rel = abs(losses[tag] - ref_loss) / abs(ref_loss)
         worst = max(r, key=lambda k: r[k][0])
         least = min(r, key=lambda k: r[k][1])
-        print(f"[train-golden] {tag}: loss port {losses[tag]:.8f} JAX {ref_loss:.8f} (rel "
-              f"{rel:.3e}, limit 1e-4); per leaf max|d|/max (limit {GRAD_LIMITS[tag]}) worst "
-              f"{worst} {r[worst][0]:.3e}, cosine (limit {LEAF_COSINE[tag]}) least "
+        print(f"[{phase}] {tag}: loss port {losses[tag]:.8f} JAX {ref_loss:.8f} (rel "
+              f"{rel:.3e}, limit 1e-4); per leaf max|d|/max (limit {limits[0][tag]}) worst "
+              f"{worst} {r[worst][0]:.3e}, cosine (limit {limits[1][tag]}) least "
               f"{least} {r[least][1]:.6f}; per leaf (max|d|/max, 1 - cosine) "
               + ", ".join(f"{k} {e:.2e} {1.0 - c:.1e}" for k, (e, c) in r.items()))
         require(rel <= 1e-4, f"train-golden {tag} loss disagrees")
@@ -710,25 +798,27 @@ def check_train_golden(cfg, dev):
     _, cpu_grads, cpu_dx, cpu_out = loss_and_grads(mod_cpu, x_cpu)
     if dev.type == "cuda":
         compare_devices(cfg, (mod, x, grads, dx, out), (mod_cpu, x_cpu, cpu_grads, cpu_dx,
-                                                        cpu_out))
+                                                        cpu_out), phase, route)
     composed = composed_check(mod, mod_cpu, x_cpu, cpu_out)
     err_a, err_f = composed()
-    print(f"[train-golden] composed kernels (synth, merge, refgrad, cuFFT) from the CPU's "
-          f"synth controls against the same on the CPU: d amplitudes {err_a:.3e}, d "
+    print(f"[{phase}] composed kernels (synth, merge, {route_bwd_name(route)}, cuFFT) from "
+          f"the CPU's synth controls against the same on the CPU: d amplitudes {err_a:.3e}, d "
           f"frequencies {err_f:.3e} of their max (limit {COMPOSED_LIMIT})")
     require(err_a <= COMPOSED_LIMIT and err_f <= COMPOSED_LIMIT,
             "the composed kernels disagree with the CPU")
 
-    for name, targets, fn in grad_controls():
+    for name, targets, fn in grad_controls(route):
         with contextlib.ExitStack() as stack:
             for module, attr in targets:
                 stack.enter_context(mock.patch.object(module, attr, fn))
-            gates = train_golden_gates(g, dev, mod, x, composed)
+            gates = train_golden_gates(g, dev, mod, x, composed, limits, route)
         rejected = [k for k, (ok, _) in gates.items() if not ok]
-        print(f"[train-golden] control ({name}): rejected by {rejected}; "
+        print(f"[{phase}] control ({name}): rejected by {rejected}; "
               + "; ".join(f"{k}: {v}" for k, (_, v) in gates.items()))
-        require(bool(rejected), f"train-golden control ({name}) passed every gate")
-    print(f"[train-golden] cap-rounding rows of the 64-clip batch on the CPU (JAX f32 vs "
+        require(bool(rejected), f"{phase} control ({name}) passed every gate")
+    if "cap_rows" not in g:
+        return
+    print(f"[{phase}] cap-rounding rows of the 64-clip batch on the CPU (JAX f32 vs "
           f"float64 CDF sums): {int(g['cap_rows_differ'])} of {int(g['cap_rows'])} differ, "
           f"{int(g['cap_rows_jump'])} by more than 1e-6 rel (largest "
           f"{float(g['cap_jump_max_rel']):.3e}); target CDF rows that JAX's prefix sum makes "
@@ -815,6 +905,257 @@ def check_refgrad(alpha, beta, gaug, make_inputs):
     }
 
 
+def dyadic_plane_rows(rng: np.random.Generator, rows: int, n: int):
+    """(alpha, beta, g, wbar) as float32 numpy on which every product and
+    sum of the plane kernels and their plain versions is exact in f32:
+    clipped CDFs on multiples of 2^-6 up to a per-row cap, with empty
+    intervals (zero steps), plateaus, a cap tail and ties between alpha and
+    beta (every 7th row has beta = alpha); a sorted grid of multiples of
+    2^-4 with repeats; row weights of multiples of 2^-1. A term is then a
+    multiple of 2^-18 (forward, p <= 3) or 2^-13 (backward) of magnitude
+    <= 1 or <= 2, and no sum needs more than 24 bits."""
+    cap = rng.integers(16, 65, (rows, 1))
+    zero_share = rng.uniform(0.5, 0.98, (rows, 1))
+
+    def cdf():
+        steps = np.where(rng.random((rows, n - 1)) < zero_share, 0,
+                         rng.integers(1, 4, (rows, n - 1)))
+        return np.concatenate([np.minimum(np.cumsum(steps, -1), cap), cap], -1)
+
+    alpha, beta = cdf(), cdf()
+    beta[::7] = alpha[::7]
+    g = np.sort(rng.integers(0, 17, n)) / 16.0
+    wbar = rng.integers(1, 5, rows) / 2.0
+    return tuple(a.astype(np.float32) for a in (alpha / 64.0, beta / 64.0, g, wbar))
+
+
+def random_plane_rows(rng: np.random.Generator, rows: int, n: int, sort: bool = True):
+    """(alpha, beta, g, wbar): clipped CDFs of spectra-like random weights
+    (zero bins, the estimate at another mass) on a uniform grid; with
+    ``sort`` False, each row's CDFs are permuted (the kernels' full-scan
+    path)."""
+    u = rng.random((rows, n - 1)) ** 8
+    v = rng.random((rows, n - 1)) ** 8
+    u[:, ::7] = 0.0
+    v[:, ::5] = 0.0
+    u /= u.sum(-1, keepdims=True)
+    v /= v.sum(-1, keepdims=True) / rng.uniform(0.7, 1.3, (rows, 1))
+    grid = np.linspace(0.0, 1.0, n - 1, dtype=np.float32)
+    alpha, beta, gaug = (t.numpy() for t in clipped_cdfs(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (grid, u, v)), True))
+    if not sort:
+        alpha, beta = (rng.permuted(a, axis=-1) for a in (alpha, beta))
+    wbar = (rng.random(rows) + 0.5).astype(np.float32)
+    return alpha, beta, gaug, wbar
+
+
+def plane_outputs(alpha, beta, g, wbar, p, fwd, bwd):
+    """(W, dalpha, dbeta with alpha_grads, dbeta without) of one pair of
+    plane functions."""
+    w = fwd(alpha, beta, g, p)
+    da, db = bwd(alpha, beta, g, p, wbar, True)
+    _, db_tc = bwd(alpha, beta, g, p, wbar, False)
+    return w, da, db, db_tc
+
+
+def check_plane_case(what, arrays, dev, p, exact):
+    """Kernels 6 and 7 (both alpha_grads) against their plain versions on
+    the card. exact: every output bit-equal; else the forward within
+    PLANE_LIMITS[0] of each row's value and the cotangents within
+    PLANE_LIMITS[1] of their max. Returns (max|d| of W, max|d| of the
+    cotangents)."""
+    alpha, beta, g, wbar = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+    got = plane_outputs(alpha, beta, g, wbar, p, kplane.sot_plane_forward,
+                        kplane.sot_plane_backward)
+    ref = plane_outputs(alpha, beta, g, wbar, p, kplane.sot_plane_forward_plain,
+                        kplane.sot_plane_backward_plain)
+    torch.cuda.synchronize()
+    equal = [torch.equal(a, b) for a, b in zip(got, ref)]
+    share = float(np.mean([float((a == b).float().mean()) for a, b in zip(got, ref)]))
+    w_rel = float(((got[0] - ref[0]).abs() / ref[0].abs().clamp(min=1e-30)).max())
+    d_rel = max(max_rel(a, b) for a, b in zip(got[1:], ref[1:]))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    print(f"[kernels] plane {what} {tuple(alpha.shape)} p={p:g}: W per-row rel {w_rel:.3e}, "
+          f"cotangents max|d|/max {d_rel:.3e} (alpha_grads both ways); bit-equal: W, dalpha, "
+          f"dbeta, dbeta (target constant) {equal}, share {share:.6f}"
+          + (" (must be bit-equal)" if exact else f" (limits {PLANE_LIMITS})"))
+    if exact:
+        require(finite and all(equal), f"plane kernels are not bit-equal on {what} rows")
+    else:
+        require(finite and w_rel <= PLANE_LIMITS[0] and d_rel <= PLANE_LIMITS[1],
+                f"plane kernels disagree on {what} rows")
+    return (float((got[0] - ref[0]).abs().max()),
+            max(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:])))
+
+
+def route_grad_beta(alpha, beta, gaug, wbar, route):
+    """The beta cotangent of the SOT route's backward: kernel 5 for ``ref``,
+    kernel 7 (target constant) for ``hybrid`` and ``plane``. Looked up at
+    call time, so that a control's patch reaches it."""
+    if route == "ref":
+        return krefgrad.ref_grad_beta(alpha, beta, gaug, wbar)
+    return kplane.sot_plane_backward(alpha, beta, gaug, 2.0, wbar, False)[1]
+
+
+def plane_cells(alpha, beta):
+    """Cells the kernels' bands visit per pass, from these inputs: for each
+    column j, #{alpha < beta_j} + 1 (capped at n) less #{alpha <= delta_j},
+    and the mirror for the alpha pass."""
+    n = alpha.shape[1]
+
+    def visits(side, other):
+        prev = torch.nn.functional.pad(side, (1, 0))[:, :-1].contiguous()
+        lo = torch.searchsorted(other, prev, right=True)
+        hi = torch.clamp(torch.searchsorted(other, side, right=False) + 1, max=n)
+        return float(torch.clamp(hi - lo, min=0).sum())
+
+    return visits(beta, alpha), visits(alpha, beta)
+
+
+def plane_bound(alpha, beta, backward: bool, alpha_grads: bool = False):
+    """(bound_ms, bound_by) of kernel 6 or 7 on these inputs: each input read
+    once, each output written once; per visited cell ~8 operations forward
+    (min, max, sub, relu, grid sub, power, mul, add) or ~14 backward (the
+    forward's and the tie weights, two products and two sums), per column
+    two binary searches of log2(n) compares."""
+    rows, n = alpha.shape
+    beta_cells, alpha_cells = plane_cells(alpha, beta)
+    searches = 2 * rows * n * math.log2(n)
+    if not backward:
+        return roofline(8 * beta_cells + searches, 4.0 * (2 * rows * n + n + rows))
+    flops = 14 * beta_cells + searches
+    out = rows * n
+    if alpha_grads:
+        flops += 14 * alpha_cells + searches
+        out *= 2
+    return roofline(flops, 4.0 * (2 * rows * n + n + rows + out))
+
+
+def plane_kernel_checks(dev, rng, golden_512):
+    """[kernels] for kernels 6 and 7: dyadic rows bit for bit at both loss
+    shapes, the golden's real SOT-512 rows, random sorted rows at
+    [1024, 1026] and unsorted rows, p = 2 and 3; then on the golden's rows,
+    kernel 7's beta cotangent against kernel 5's and against JAX's
+    _pallas_bwd, and the W of kernels 4 and 6 against JAX's. Returns the
+    largest max|d| of kernel 6 and of kernel 7 against their plain versions
+    on the rows that are not dyadic."""
+    for n in (258, 1026):
+        for p in (2.0, 3.0):
+            check_plane_case("dyadic", dyadic_plane_rows(rng, BATCH * 16, n), dev, p, True)
+    a, b, g = (golden_512[k] for k in ("sot_alpha", "sot_beta", "sot_gaug"))
+    golden_rows = (a, b, g, (rng.random(len(a)) + 0.5).astype(np.float32))
+    errs = []
+    for p in (2.0, 3.0):
+        errs.append(check_plane_case("SOT-512 golden (real)", golden_rows, dev, p, False))
+        errs.append(check_plane_case("random sorted", random_plane_rows(rng, BATCH * 16, 1026),
+                                     dev, p, False))
+    errs.append(check_plane_case("unsorted", random_plane_rows(rng, BATCH, 258, sort=False),
+                                 dev, 2.0, False))
+
+    alpha, beta, gaug = (torch.from_numpy(golden_512[k]).to(dev)
+                         for k in ("sot_alpha", "sot_beta", "sot_gaug"))
+    rows = alpha.shape[0]
+    wbar = torch.full((rows,), 1.0 / rows, device=dev)
+    db7 = route_grad_beta(alpha, beta, gaug, wbar, "hybrid")
+    db5 = route_grad_beta(alpha, beta, gaug, wbar, "ref")
+    e75, e7j = max_rel(db7, db5), max_rel(db7, golden_512["sot_db"])
+    x2 = golden_512["sot_gaug"] ** 2
+    marg = float(((a - np.pad(a, ((0, 0), (1, 0)))[:, :-1]) @ x2
+                  + (b - np.pad(b, ((0, 0), (1, 0)))[:, :-1]) @ x2).max())
+    w4 = kmerge.sot_w2_merge(alpha, beta, gaug).cpu().numpy()
+    w6 = kplane.sot_plane_forward(alpha, beta, gaug, 2.0).cpu().numpy()
+    e4, e6 = (float(np.abs(w - golden_512["sot_w"]).max()) / marg for w in (w4, w6))
+    print(f"[kernels] SOT-512 golden rows {tuple(alpha.shape)}: kernel 7 beta cotangent against "
+          f"kernel 5 {e75:.3e} and against JAX _pallas_bwd {e7j:.3e} of the max (limit "
+          f"{SOT_ROW_LIMITS[1]}; bit-equal shares {float((db7 == db5).float().mean()):.6f}, "
+          f"{float(np.mean(db7.cpu().numpy() == golden_512['sot_db'])):.6f}); W of kernels 4 "
+          f"and 6 against JAX's merge W: {e4:.3e}, {e6:.3e} of the marginals (limit "
+          f"{SOT_ROW_LIMITS[0]})")
+    require(e75 <= SOT_ROW_LIMITS[1] and e7j <= SOT_ROW_LIMITS[1],
+            "kernel 7 disagrees with kernel 5 or JAX on real rows")
+    require(e4 <= SOT_ROW_LIMITS[0] and e6 <= SOT_ROW_LIMITS[0],
+            "kernels 4 and 6 disagree with JAX's W on real rows")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def plane_timings(rows_258, rows_1026):
+    """[timing] of kernels 4, 5, 6 and 7 at [1024, 258] (the SOT-512
+    rows of the trained model) and of kernels 6 and 7 at [1024, 1026]; the
+    A/B of the ``hybrid`` backward (kernel 7) against ``ref``'s (kernel 5),
+    in turns. Returns the JSON entries of kernels 6 (at [1024, 1026], the
+    ``default`` route of SOT-2048) and 7 (at [1024, 258], the SOT-512
+    ``auto`` route)."""
+    def wbar_of(al):
+        return torch.full((al.shape[0],), 1.0 / al.shape[0], device=al.device)
+
+    def fwd6(al, be, ga, wb):
+        return kplane.sot_plane_forward(al, be, ga, 2.0)
+
+    def bwd7(al, be, ga, wb):
+        return kplane.sot_plane_backward(al, be, ga, 2.0, wb, False)
+
+    def plain6(al, be, ga, wb):
+        return kplane.sot_plane_forward_plain(al, be, ga, 2.0)
+
+    def plain7(al, be, ga, wb):
+        return kplane.sot_plane_backward_plain(al, be, ga, 2.0, wb, False)
+
+    def fwd4(al, be, ga, wb):
+        return kmerge.sot_w2_merge(al, be, ga)
+
+    def bwd5(al, be, ga, wb):
+        return krefgrad.ref_grad_beta(al, be, ga, wb)
+
+    card = card_line()
+    out = {}
+    for tag, rows in (("[1024, 258]", rows_258), ("[1024, 1026]", rows_1026)):
+        inputs = [(al, be, ga, wbar_of(al)) for al, be, ga in rows]
+        alpha, beta = inputs[0][:2]
+        ms = {"6": median_ms(fwd6, inputs), "7": median_ms(bwd7, inputs),
+              "6 plain": median_ms(plain6, inputs), "7 plain": median_ms(plain7, inputs),
+              "6 device": device_ms(fwd6, inputs, "plane_fwd_kernel"),
+              "7 device": device_ms(bwd7, inputs, "plane_bwd_kernel")}
+        b6, b7 = plane_bound(alpha, beta, False), plane_bound(alpha, beta, True)
+        beta_cells, alpha_cells = plane_cells(alpha, beta)
+        print(f"[timing] plane {tag}: kernel 6 {ms['6']:.4f} ms (device {ms['6 device']:.4f}, "
+              f"plain {ms['6 plain']:.4f}, bound {b6[0]:.4f} {b6[1]}), kernel 7 {ms['7']:.4f} ms "
+              f"(device {ms['7 device']:.4f}, plain {ms['7 plain']:.4f}, bound {b7[0]:.4f} "
+              f"{b7[1]}); cells visited per row: beta pass "
+              f"{beta_cells / alpha.shape[0]:.1f}, alpha pass {alpha_cells / alpha.shape[0]:.1f} "
+              f"of {alpha.shape[1] ** 2} | {card}")
+        out[tag] = (ms, b6, b7)
+        if tag == "[1024, 258]":
+            # parent-free A/B inside one call: 5, 7, 7, 5 and the forward 4
+            ab = [median_ms(bwd5, inputs), median_ms(bwd7, inputs), median_ms(bwd7, inputs),
+                  median_ms(bwd5, inputs)]
+            ms4 = median_ms(fwd4, inputs)
+            k5, k7 = (ab[0] + ab[3]) / 2, (ab[1] + ab[2]) / 2
+            dev = [device_ms(bwd5, inputs, "refgrad_kernel"),
+                   device_ms(bwd7, inputs, "plane_bwd_kernel"),
+                   device_ms(bwd7, inputs, "plane_bwd_kernel"),
+                   device_ms(bwd5, inputs, "refgrad_kernel")]
+            dev4 = device_ms(fwd4, inputs, "coupling_fwd_kernel")
+            print(f"[timing] A/B at [1024, 258], turns 5, 7, 7, 5 (CUDA events per call): "
+                  f"kernel 5 (ref backward) {ab[0]:.4f} / {ab[3]:.4f} ms, kernel 7 (hybrid "
+                  f"backward) {ab[1]:.4f} / {ab[2]:.4f} ms; the merge forward both routes share "
+                  f"(kernel 4 with its PyTorch terms) {ms4:.4f} ms; route totals ref "
+                  f"{ms4 + k5:.4f} ms, hybrid {ms4 + k7:.4f} ms (hybrid - ref {k7 - k5:+.4f} ms, "
+                  f"{100.0 * (k7 - k5) / (ms4 + k5):+.1f}%) | {card}")
+            print(f"[timing] A/B at [1024, 258], device time per kernel (profiler), turns 5, 7, "
+                  f"7, 5: kernel 5 {dev[0]:.4f} / {dev[3]:.4f} ms, kernel 7 {dev[1]:.4f} / "
+                  f"{dev[2]:.4f} ms, kernel 4 {dev4:.4f} ms | {card}")
+    ms6, b6, _ = out["[1024, 1026]"]
+    ms7, _, b7 = out["[1024, 258]"]
+    return [
+        {"name": "sot_plane_forward", "route": "cuda", "source": "sot_tpu_torch/csrc/plane.cu",
+         "replaces": "sot_tpu/ops/pallas/sot.py:91", "max_abs_err": None, "ms": ms6["6"],
+         "plain_ms": ms6["6 plain"], "bound_ms": b6[0], "bound_by": b6[1], "library_ms": None},
+        {"name": "sot_plane_backward", "route": "cuda", "source": "sot_tpu_torch/csrc/plane.cu",
+         "replaces": "sot_tpu/ops/pallas/sot.py:137", "max_abs_err": None, "ms": ms7["7"],
+         "plain_ms": ms7["7 plain"], "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None},
+    ]
+
+
 def plain_synth_vjp(amps, freqs, dout, t, sr):
     a = amps.detach().requires_grad_(True)
     f = freqs.detach().requires_grad_(True)
@@ -859,13 +1200,14 @@ def check_synth_backward(cfg, dev, rng):
 
 def reset_launches() -> None:
     kcqt.launches = ksynth.launches = ksynth.backward_launches = 0
-    kmerge.launches = krefgrad.launches = 0
+    kmerge.launches = krefgrad.launches = kplane.launches = kplane.backward_launches = 0
 
 
 def read_launches():
     return {"cqt_project": kcqt.launches, "synth_render": ksynth.launches,
             "synth_backward": ksynth.backward_launches, "merge_coupling": kmerge.launches,
-            "ref_grad_beta": krefgrad.launches}
+            "ref_grad_beta": krefgrad.launches, "sot_plane_forward": kplane.launches,
+            "sot_plane_backward": kplane.backward_launches}
 
 
 def timed_steps(mod, state, x_all, offsets):
@@ -879,15 +1221,35 @@ def timed_steps(mod, state, x_all, offsets):
     return times, logs
 
 
-def train(cfg, dev):
-    """The train step at batch 64 from a device-resident dataset."""
+# the configuration fields the dataset is generated from
+DATA_FIELDS = ("data_seed", "dataset_size", "n_samples", "sample_rate", "freq_gen_min",
+               "freq_gen_max", "amplitude_min", "amplitude_max", "n_sinusoids",
+               "n_sinusoids_min", "mask_rand_amplitudes", "dataset_path")
+
+
+def train_dataset(cfg, dev):
+    """The config's train split, generated on the card by the port's data
+    module and kept resident."""
     t0 = time.perf_counter()
     splits = data_lib.dataset_from_config(cfg, device=dev)
     x_all = torch.from_numpy(data_lib.peak_normalize(splits["train"].x)).to(dev)
     torch.cuda.synchronize()
     print(f"[train] dataset: {cfg.dataset_size} clips generated on the card, train split "
           f"{tuple(x_all.shape)} resident ({(time.perf_counter() - t0) * 1e3:.1f} ms set-up)")
-    mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed))
+    return x_all
+
+
+def train(cfg, dev, x_all, kernels="auto", on=(), window=True):
+    """Train steps at batch 64 from the device-resident dataset: 4 steps
+    with their launch counts (each kernel in ``on`` launched, every other
+    kernel not), finite loss and grad_norm, changed parameters; with
+    ``window``, 32 more timed steps and a profile of one more."""
+    base = get_experiment("SOT-2048")
+    require(all(getattr(base, f) == getattr(cfg, f) for f in DATA_FIELDS),
+            f"{cfg.name} draws another dataset than the one generated")
+    label = f"{cfg.name} kernels={kernels}"
+    mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
+                        kernels=kernels)
     state = trainer.init_state(mod)
     before = [p.detach().clone() for p in mod.encoder.parameters()]
     offsets = np.arange(TRAIN_STEPS + WINDOW_STEPS + 1) * BATCH
@@ -899,32 +1261,62 @@ def train(cfg, dev):
     loss, gnorm = float(logs["loss/total"]), float(logs["grad_norm"])
     moved = max(float((p.detach() - q).abs().max())
                 for p, q in zip(mod.encoder.parameters(), before))
-    print(f"[train] {TRAIN_STEPS} steps x {BATCH} clips: step ms "
+    print(f"[train] {label}: {TRAIN_STEPS} steps x {BATCH} clips: step ms "
           f"{', '.join(f'{v:.3f}' for v in times)}; last loss {loss:.6f} (MSS "
           f"{float(logs['loss/MSSLoss']):.6f}, W1D {float(logs['loss/Wasserstein1D']):.6f}), "
           f"grad_norm {gnorm:.6f}, max parameter change {moved:.3e}")
-    print(f"[train] launches during the {TRAIN_STEPS} steps: {launches}")
+    print(f"[train] {label}: launches during the {TRAIN_STEPS} steps: {launches} (route "
+          f"{wasserstein_lib.w2_route(len(mod.x_pos), kernels)!r})")
     require(math.isfinite(loss) and math.isfinite(gnorm), "non-finite train loss or grad_norm")
     require(moved > 0.0, "the parameters did not change")
-    require(all(v > 0 for v in launches.values()), "a kernel was not launched by the train step")
+    require(all(launches[k] > 0 for k in on), f"{label}: a kernel of the route was not launched")
+    require(all(v == 0 for k, v in launches.items() if k not in on),
+            f"{label}: a kernel off the route was launched")
+    if not window:
+        return launches
 
     window, logs = timed_steps(mod, state, x_all, offsets[TRAIN_STEPS:-1])
     total = sum(window)
     frames = WINDOW_STEPS * BATCH * 16
-    print(f"[train] window of {WINDOW_STEPS} steps x {BATCH} clips x 16 frames: {frames} frames "
-          f"in {total:.3f} ms of summed step time = {frames / total * 1e3:.1f} "
-          f"train frames/s (SOT-2048 train step, port); step ms median "
+    print(f"[train] {label}: window of {WINDOW_STEPS} steps x {BATCH} clips x 16 frames: "
+          f"{frames} frames in {total:.3f} ms of summed step time = {frames / total * 1e3:.1f} "
+          f"train frames/s ({cfg.name} train step, port); step ms median "
           f"{statistics.median(window):.3f}, min {min(window):.3f}, max {max(window):.3f}; "
           f"last loss {float(logs['loss/total']):.6f}")
-    print(f"[train] window step ms: {', '.join(f'{v:.3f}' for v in window)}")
+    print(f"[train] {label}: window step ms: {', '.join(f'{v:.3f}' for v in window)}")
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    busy = profile_device("one train step",
+    busy = profile_device(f"one {cfg.name} train step",
                           lambda: trainer.train_steps(mod, state, x_all, offsets[-1:]), top=30)
     if busy is not None:
         median = statistics.median(window)
-        print(f"[train] device busy {busy:.4f} ms of one step against the window's median "
-              f"step {median:.3f} ms: idle share {1.0 - busy / median:.3f}")
+        print(f"[train] {label}: device busy {busy:.4f} ms of one step against the window's "
+              f"median step {median:.3f} ms: idle share {1.0 - busy / median:.3f}")
     return launches
+
+
+def check_eval_512(cfg, dev):
+    """[eval-512]: the port's ``evaluate`` with the SOT-512 seed-42 weights
+    on the predict golden's 64 clips and their f0, on the card, against the
+    JAX package's ``evaluate`` stored in the SOT-512 golden."""
+    with np.load(GOLDEN) as z:
+        split = data_lib.SplitArrays(z["x"], z["f0"], np.zeros((len(z["x"]), 1), np.float32))
+    with np.load(GOLDEN_512) as z:
+        ref = {k[len("eval/"):]: float(z[k]) for k in z.files if k.startswith("eval/")}
+    mod = build_modules(cfg, device=dev)
+    load_golden_weights(mod, GOLDEN_512)
+    got = trainer.evaluate(mod, trainer.make_eval_step(mod), split, len(split))
+    require(set(got) == set(ref), f"eval metric names {sorted(got)} != {sorted(ref)}")
+    frame_wise = ("raw_pitch_accuracy", "raw_chroma_accuracy", "octave_difference")
+    misses = []
+    for k in sorted(ref):
+        d = abs(got[k] - ref[k])
+        ok = d <= EVAL_FRAME + 1e-7 if k in frame_wise else d <= EVAL_REL * abs(ref[k])
+        misses += [] if ok else [k]
+        print(f"[eval-512] {k}: port {got[k]:.6f} JAX {ref[k]:.6f} |d| {d:.3e} ("
+              + (f"limit {EVAL_FRAME:.3e}, one frame)" if k in frame_wise
+                 else f"rel {d / abs(ref[k]):.3e}, limit {EVAL_REL})"))
+    require(all(math.isfinite(v) for v in got.values()), "non-finite eval metrics")
+    require(not misses, f"eval metrics disagree with JAX: {misses}")
 
 
 def main() -> int:
@@ -937,7 +1329,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     set_precision_policy()
 
-    seconds = _build.build(["cqt", "synth", "merge", "refgrad"])
+    seconds = _build.build(["cqt", "synth", "merge", "refgrad", "plane"])
     print(f"[build] nvcc sm_90a, parallel: {json.dumps(seconds)} s")
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
@@ -945,29 +1337,57 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     cfg = get_experiment("SOT-2048")
+    cfg512 = get_experiment("SOT-512")
     rng = np.random.default_rng(0)
     kernels = [check_cqt(cfg, dev, rng), check_synth(cfg, dev, rng)]
     mod = check_golden(cfg, dev)
     serving_launches, last_request = serve(cfg, mod)
     profile_device("one served request", lambda: predict(mod, last_request))
 
-    # the train step's kernels on real SOT rows of the trained model
+    # the train step's kernels on real SOT rows of the trained models
     batches = make_requests(cfg, dev, 1 + TIMING_INPUTS, seed=3000)
     rows = [sot_rows(mod, torch.from_numpy(b).to(dev)) for b in batches]
     alpha, beta, gaug = rows[0]
     kernels += [check_synth_backward(cfg, dev, rng),
                 check_merge(alpha, beta, gaug, lambda: rows[1:]),
                 check_refgrad(alpha, beta, gaug, lambda: rows[1:])]
-    check_train_golden(cfg, dev)
+    with np.load(GOLDEN_512) as z:
+        golden_512 = {k: z[k] for k in z.files}
+    plane_errs = plane_kernel_checks(dev, rng, golden_512)
+    mod512 = build_modules(cfg512, device=dev)
+    load_golden_weights(mod512, GOLDEN_512)
+    rows512 = [sot_rows(mod512, torch.from_numpy(b).to(dev)) for b in batches]
+    plane_entries = plane_timings(rows512, rows)
+    for entry, err in zip(plane_entries, plane_errs):
+        entry["max_abs_err"] = err
+    kernels += plane_entries
 
-    launches = train(cfg, dev)
+    check_train_golden(cfg, dev)
+    check_train_golden(cfg512, dev, GOLDEN_512, GOLDEN_512, (GRAD_LIMITS_512, LEAF_COSINE_512),
+                       "train-golden-512")
+    check_eval_512(cfg512, dev)
+
+    x_all = train_dataset(cfg, dev)
+    common = ("cqt_project", "synth_render", "synth_backward")
+    runs = {
+        "SOT-2048 auto": train(cfg, dev, x_all, on=common + ("merge_coupling", "ref_grad_beta")),
+        "SOT-512 auto": train(cfg512, dev, x_all,
+                              on=common + ("merge_coupling", "sot_plane_backward")),
+        "SOT-512-LogF auto": train(get_experiment("SOT-512-LogF"), dev, x_all, window=False,
+                                   on=common + ("merge_coupling", "sot_plane_backward")),
+        "SOT-2048 default": train(cfg, dev, x_all, kernels="default", window=False,
+                                  on=common + ("sot_plane_forward", "sot_plane_backward")),
+    }
+    # each kernel's count from the run whose main path it is on
+    main_path = {"sot_plane_forward": "SOT-2048 default", "sot_plane_backward": "SOT-512 auto"}
     print(f"[serving] launches during the serving requests: {serving_launches}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        run = main_path.get(k["name"], "SOT-2048 auto")
+        k["launches"] = runs[run][k["name"]]
         print(f"[timing] {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"library {k['library_ms'] if k['library_ms'] is None else round(k['library_ms'], 4)}"
               f" ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), {k['launches']} launches "
-              f"over the {TRAIN_STEPS} train steps | {card}")
+              f"over the {TRAIN_STEPS} {run} train steps | {card}")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

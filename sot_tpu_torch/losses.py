@@ -3,7 +3,9 @@ and the multi-scale spectral loss.
 
   * ``Wasserstein1D`` — x (the target spectrum) self-normalised, y divided by
     x's mass under ``dont_normalize``; ``square_dist`` squares both first;
-    ``limit_quantile_range`` is the frequency cutoff; an optional hinge;
+    ``limit_quantile_range`` is the frequency cutoff; ``kernels`` picks the
+    same-grid route (where the JAX package reads its kernel gates); an
+    optional hinge;
     [batch, frames, bins] rows flattened; mean over rows. One shared sorted
     numpy grid for both spectra takes the same-grid path (the training hot
     path), anything else the general sorting path.
@@ -56,6 +58,8 @@ class Wasserstein1D:
     square_dist: bool = False
     # x (the target spectrum) is data with no gradient (training sets this)
     target_constant: bool = False
+    # the same-grid W_2 route's gates: "auto" or "default" (ops/wasserstein.w2_route)
+    kernels: str = "auto"
 
     name = "Wasserstein1D"
 
@@ -108,7 +112,7 @@ class Wasserstein1D:
         if same_grid and not return_quantiles:
             loss = wasserstein_1d_same_grid(
                 grid_1d, x, y, p=self.p, limit_quantile_range=self.limit_quantile_range,
-                target_constant=self.target_constant)
+                target_constant=self.target_constant, kernels=self.kernels)
         else:
             loss = wasserstein_1d(x_pos, y_pos, u_weights=x, v_weights=y, p=self.p,
                                   require_sort=self.require_sort,

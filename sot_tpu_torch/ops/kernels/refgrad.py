@@ -16,8 +16,8 @@ of ``_assemble`` (see ``sot_tpu/ops/pallas/refgrad.py`` for the derivation).
   * ``ref_grad_beta_plain`` — ``ref_grad_beta_xla``: searchsorted + gather
   * ``ref_grad_beta`` — the wrapper: plain on a CPU tensor, the kernel on a
     CUDA tensor (or raises)
-  * ``plane_grad_beta_dense`` — the O(n^2) transcription of the plane
-    backward, the tests' oracle
+  * the O(n^2) oracle is the plane backward's plain version,
+    ``ops/kernels/plane.sot_plane_backward_plain``
 
 Bound on the H100: bytes (12.6 MB at [1024, 1026], ~3.8 us). One block per
 row with alpha, beta and the grid in shared memory and two binary searches
@@ -39,23 +39,6 @@ from sot_tpu_torch.ops.kernels import _build
 launches = 0
 
 _MAX_COLS = 16384
-
-
-def plane_grad_beta_dense(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor,
-                          wbar: torch.Tensor) -> torch.Tensor:
-    """O(n^2) beta cotangent with the plane kernel's convention (tests only)."""
-    gamma = F.pad(alpha, (1, 0))[:, :-1]
-    delta = F.pad(beta, (1, 0))[:, :-1]
-    a_i, c_i = alpha[:, :, None], gamma[:, :, None]
-    b_j, d_j = beta[:, None, :], delta[:, None, :]
-    m = (torch.minimum(a_i, b_j) > torch.maximum(c_i, d_j)).to(torch.float32)
-    d2 = ((g[:, None] - g[None, :]) ** 2)[None]
-    one_minus_wa = torch.where(a_i > b_j, 1.0, torch.where(a_i == b_j, 0.5, 0.0))
-    wc = torch.where(c_i < d_j, 1.0, torch.where(c_i == d_j, 0.5, 0.0))
-    db = torch.sum(m * d2 * one_minus_wa, dim=1)
-    dd = -torch.sum(m * d2 * wc, dim=1)
-    dd_next = torch.cat([dd[:, 1:], torch.zeros_like(dd[:, :1])], dim=-1)
-    return wbar[:, None] * (db + dd_next)
 
 
 def _combine(q2, q1, q0, G):
@@ -90,7 +73,7 @@ def _assemble(f_hi: Sequence[torch.Tensor], f_lo: Sequence[torch.Tensor],
 
 def ref_grad_beta_plain(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor,
                         wbar: torch.Tensor) -> torch.Tensor:
-    """Rank-query form of ``plane_grad_beta_dense`` in O(n log n)."""
+    """Rank-query form of the plane backward's beta side in O(n log n)."""
     alpha, beta = alpha.contiguous(), beta.contiguous()
     P = _payloads(alpha, g)
     r_lt = torch.searchsorted(alpha, beta, right=False)

@@ -37,6 +37,11 @@ def safe_log(x: Number, eps: float = 1e-5) -> torch.Tensor:
     return torch.log(torch.where(x <= eps, torch.full_like(x, eps), x))
 
 
+def safe_log10(x: Number, eps: float = 1e-5) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    return torch.log10(torch.where(x <= eps, torch.full_like(x, eps), x))
+
+
 def logb(x: Number, base: float = 2.0) -> torch.Tensor:
     return torch.log(_f32(x)) / math.log(base)
 

@@ -7,15 +7,17 @@ wasserstein.py`` and the same-grid entry of ``sot_tpu/ops/pallas/sot.py``).
     values, as in the reference
   * ``wasserstein_same_grid`` — both spectra on one shared sorted grid (the
     training hot path): CDFs, the quantile cap, the augmented tail lane,
-    then the p = 1 closed form or, for p = 2 with a constant target, the
-    merge-coupling value (kernel B4) with the reference-convention
-    gradient (kernel B5) as one ``autograd.Function``
-  * ``_sot_bilinear_xla`` — the dense O(n^2) overlap form, a test oracle
+    then the p = 1 closed form, or one of three routes (``w2_route``), each
+    an ``autograd.Function`` around hand-written kernels:
 
-The same-grid path covers what the SOT-2048 train step runs. Other p, and a
-target that needs a gradient, go through the banded-plane kernels
-(``sot_tpu/ops/pallas/sot.py`` _fwd_kernel / _bwd_kernel), which are not
-ported yet: they raise.
+      ``ref``    merge-coupling value (kernel B4) + reference-convention
+                 beta gradient (kernel B5); a constant target only
+      ``hybrid`` merge-coupling value (B4) + banded-plane backward (B7)
+      ``plane``  banded-plane value (B6) + banded-plane backward (B7)
+
+    All three give the plane kernel's gradient convention. p other than 1
+    and 2 always takes ``plane``; ``ref`` with a target that needs a
+    gradient becomes ``hybrid`` (``sot.py:676-724``).
 """
 
 from __future__ import annotations
@@ -26,27 +28,29 @@ import torch
 import torch.nn.functional as F
 
 from sot_tpu_torch.ops.kernels.merge import sot_w2_merge
+from sot_tpu_torch.ops.kernels.plane import sot_plane_backward, sot_plane_forward
 from sot_tpu_torch.ops.kernels.refgrad import ref_grad_beta
 from sot_tpu_torch.ops.scan import prefix_sum
 
-
-def _grid_dist_pow(d: torch.Tensor, p: float) -> torch.Tensor:
-    if p == 2.0:
-        return d * d
-    if p == 1.0:
-        return torch.abs(d)
-    return torch.abs(d) ** p
+# The largest bin count (before the tail lane) that the ``auto`` routes send
+# to ``hybrid`` (``SOT_TPU_W2_SMALL_N``'s default).
+SMALL_N = 512
 
 
-def _sot_bilinear_xla(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor,
-                      p: float) -> torch.Tensor:
-    """Dense sum_ij relu(min(a_i, b_j) - max(a_{i-1}, b_{j-1})) |g_i - g_j|^p."""
-    gamma = F.pad(alpha, (1, 0))[:, :-1]
-    delta = F.pad(beta, (1, 0))[:, :-1]
-    mu = torch.relu(torch.minimum(alpha[:, :, None], beta[:, None, :])
-                    - torch.maximum(gamma[:, :, None], delta[:, None, :]))
-    dist = _grid_dist_pow(g[:, None] - g[None, :], p)
-    return torch.sum(mu * dist[None], dim=(1, 2))
+def w2_route(n_bins: int, kernels: str = "auto") -> str:
+    """The same-grid W_2 route for rows of ``n_bins`` bins, as the JAX
+    package's committed gates choose it (``sot.py:_merge_mode``).
+
+    ``auto`` (``cli train --kernels auto``): ``ref`` above ``SMALL_N`` bins
+    (``SOT_TPU_W2_MERGE=ref``), ``hybrid`` at or below
+    (``SOT_TPU_W2_MERGE_SMALL=hybrid``, ``kernel_gates.py:124-149``).
+    ``default`` (no gate set): ``plane``. The committed outcome is written
+    here because the A/Bs behind it were measured on a TPU."""
+    if kernels == "auto":
+        return "hybrid" if n_bins <= SMALL_N else "ref"
+    if kernels == "default":
+        return "plane"
+    raise ValueError(f"kernels must be 'auto' or 'default', got {kernels!r}")
 
 
 class _W2MergeRef(torch.autograd.Function):
@@ -62,6 +66,51 @@ class _W2MergeRef(torch.autograd.Function):
     def backward(ctx, wbar):
         alpha, beta, g = ctx.saved_tensors
         return None, ref_grad_beta(alpha, beta, g, wbar.contiguous()), None
+
+
+class _W2MergeHybrid(torch.autograd.Function):
+    """W_2^2 rows: merge-coupling forward, banded-plane backward; alpha gets
+    its cotangent unless the target is constant (``_w2_merge_hybrid``)."""
+
+    @staticmethod
+    def forward(ctx, alpha, beta, g, alpha_grads):
+        ctx.save_for_backward(alpha, beta, g)
+        ctx.alpha_grads = alpha_grads
+        return sot_w2_merge(alpha, beta, g)
+
+    @staticmethod
+    def backward(ctx, wbar):
+        alpha, beta, g = ctx.saved_tensors
+        da, db = sot_plane_backward(alpha, beta, g, 2.0, wbar.contiguous(), ctx.alpha_grads)
+        return da, db, None, None
+
+
+class _SotPlane(torch.autograd.Function):
+    """W_p^p rows: banded-plane forward and backward
+    (``_sot_bilinear_pallas`` and, without ``alpha_grads``, its
+    target-constant variant)."""
+
+    @staticmethod
+    def forward(ctx, alpha, beta, g, p, alpha_grads):
+        ctx.save_for_backward(alpha, beta, g)
+        ctx.p, ctx.alpha_grads = p, alpha_grads
+        return sot_plane_forward(alpha, beta, g, p)
+
+    @staticmethod
+    def backward(ctx, wbar):
+        alpha, beta, g = ctx.saved_tensors
+        da, db = sot_plane_backward(alpha, beta, g, ctx.p, wbar.contiguous(), ctx.alpha_grads)
+        return da, db, None, None, None
+
+
+def sot_bilinear(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor, p: float = 2.0,
+                 target_constant: bool = False) -> torch.Tensor:
+    """sum_ij relu(min(a_i, b_j) - max(a_{i-1}, b_{j-1})) |g_i - g_j|^p per
+    row, for nondecreasing clipped CDFs alpha, beta [rows, n] on the sorted
+    grid g [n]; alpha gets no cotangent under ``target_constant``."""
+    if target_constant:
+        alpha = alpha.detach()
+    return _SotPlane.apply(alpha, beta, g, float(p), not target_constant)
 
 
 def clipped_cdfs(grid: torch.Tensor, u_weights: torch.Tensor, v_weights: torch.Tensor,
@@ -90,25 +139,31 @@ def clipped_cdfs(grid: torch.Tensor, u_weights: torch.Tensor, v_weights: torch.T
 def wasserstein_same_grid(grid: torch.Tensor, u_weights: torch.Tensor,
                           v_weights: torch.Tensor, p: float = 2.0,
                           limit_quantile_range: bool = False,
-                          target_constant: bool = False) -> torch.Tensor:
+                          target_constant: bool = False,
+                          kernels: str = "auto") -> torch.Tensor:
     """W_p^p between weight rows [rows, n] on one shared sorted grid [n] ->
     [rows]. ``limit_quantile_range`` integrates quantile levels up to the
-    largest CDF value <= 1 (the paper's frequency cutoff)."""
+    largest CDF value <= 1 (the paper's frequency cutoff); ``kernels``
+    chooses the p = 2 route (``w2_route``)."""
     if p < 1:
         raise ValueError(f"The OT loss is only valid for p>=1, {p} was given")
     if target_constant:
         u_weights = u_weights.detach()
+    route = w2_route(u_weights.shape[-1], kernels)
     alpha, beta, gaug = clipped_cdfs(grid, u_weights, v_weights, limit_quantile_range)
 
     if p == 1.0:
         dg = gaug[1:] - gaug[:-1]
         return torch.sum(torch.abs(alpha[:, :-1] - beta[:, :-1]) * dg[None, :], dim=-1)
-    if p == 2.0 and target_constant:
-        return _W2MergeRef.apply(alpha, beta, gaug)
-    raise NotImplementedError(
-        f"wasserstein_same_grid(p={p}, target_constant={target_constant}) needs the "
-        "banded-plane kernels (sot_tpu/ops/pallas/sot.py _fwd_kernel and _bwd_kernel, "
-        "TPU kernels 6-7), which are not ported yet (ROADMAP queue B)")
+    if p != 2.0:
+        route = "plane"
+    if route == "ref":
+        if target_constant:
+            return _W2MergeRef.apply(alpha, beta, gaug)
+        route = "hybrid"  # the target's cotangent comes from the plane backward
+    if route == "hybrid":
+        return _W2MergeHybrid.apply(alpha, beta, gaug, not target_constant)
+    return sot_bilinear(alpha, beta, gaug, p=p, target_constant=target_constant)
 
 
 def quantile_function(qs: torch.Tensor, cws: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -168,10 +223,11 @@ def wasserstein_1d(u_values: torch.Tensor, v_values: torch.Tensor,
 def wasserstein_1d_same_grid(grid: torch.Tensor, u_weights: torch.Tensor,
                              v_weights: torch.Tensor, p: float = 1,
                              limit_quantile_range: bool = False,
-                             target_constant: bool = False) -> torch.Tensor:
+                             target_constant: bool = False,
+                             kernels: str = "auto") -> torch.Tensor:
     """``wasserstein_1d(grid, grid, u, v)`` for one shared sorted grid."""
     if grid.ndim != 1:
         grid = grid[0]
     return wasserstein_same_grid(grid, u_weights, v_weights, p=p,
                                  limit_quantile_range=limit_quantile_range,
-                                 target_constant=target_constant)
+                                 target_constant=target_constant, kernels=kernels)

@@ -12,23 +12,30 @@
     package builds from ``optax.add_decayed_weights`` + ``scale_by_adam``),
     the warmup/cosine schedule as a ``LambdaLR``, and loops over a
     device-resident dataset
+  * ``make_eval_step`` / ``make_eval_all`` / ``evaluate`` — the metric
+    suite (``metrics.py``) and the loss terms of a batch in eval mode, their
+    mean over batches
   * ``predict`` — the deployment inference entry
 
 Parameters live in ``mod.encoder``; the optimizer, scheduler, dropout
-generator and step count in ``TrainState``. ``train()`` with its periodic
-evaluation and checkpoints comes with the evaluation slice (ROADMAP).
+generator and step count in ``TrainState``. ``mod.kernels`` ("auto" or
+"default", ``ops/wasserstein.w2_route``) picks the SOT loss's kernel route,
+as ``cli train --kernels`` does in the JAX package. ``train()`` with its
+periodic evaluation, and checkpoints, come with a later slice (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from sot_tpu_torch import data as data_lib
 from sot_tpu_torch import losses as losses_lib
+from sot_tpu_torch import metrics as metrics_lib
 from sot_tpu_torch.configs import ExperimentConfig
 from sot_tpu_torch.device import DeviceLike, resolve_device
 from sot_tpu_torch.features import CQT, STFT, Identity
@@ -49,12 +56,16 @@ class Modules:
     freq_hz_min: float
     freq_hz_max: float
     device: torch.device
+    kernels: str  # the SOT loss's kernel route: "auto" or "default"
+    evaluation_metrics: Dict[str, bool]
 
 
 def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
-                  generator: Optional[torch.Generator] = None) -> Modules:
+                  generator: Optional[torch.Generator] = None,
+                  kernels: str = "auto") -> Modules:
     """Build the model for ``cfg`` on ``device`` (default: the GPU; raises
-    if there is none). ``generator`` seeds the encoder's initialisation."""
+    if there is none). ``generator`` seeds the encoder's initialisation;
+    ``kernels`` picks the SOT loss's kernel route (``w2_route``)."""
     device = resolve_device(device)
     n_bins = get_cqt_n_bins(cfg.sample_rate, cfg.cqt_fmin, cfg.cqt_bins_per_semitone)
     feature_extractor = CQT(
@@ -96,7 +107,7 @@ def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
             fn = losses_lib.Wasserstein1D(
                 p=lc.p, square_dist=lc.square_dist, dont_normalize=lc.dont_normalize,
                 limit_quantile_range=lc.limit_quantile_range,
-                log_scaled_x=lc.log_scaled_x, target_constant=True)
+                log_scaled_x=lc.log_scaled_x, target_constant=True, kernels=kernels)
         else:
             raise ValueError(f"Unknown loss kind {lc.kind}")
         loss_fns.append((lc.kind, fn, lc.weight))
@@ -104,7 +115,9 @@ def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
     return Modules(config=cfg, encoder=encoder, decoder=decoder,
                    feature_extractor=feature_extractor, transform=transform,
                    loss_fns=tuple(loss_fns), x_pos=x_pos,
-                   freq_hz_min=freq_hz_min, freq_hz_max=freq_hz_max, device=device)
+                   freq_hz_min=freq_hz_min, freq_hz_max=freq_hz_max, device=device,
+                   kernels=kernels,
+                   evaluation_metrics={name: True for name in cfg.evaluation_metrics})
 
 
 def temperature_at(cfg: ExperimentConfig, step: int) -> float:
@@ -287,6 +300,63 @@ def train_steps(mod: Modules, state: TrainState, x_all: torch.Tensor,
         lo = int(lo)
         logs = train_step(mod, state, x_all[lo:lo + bs])
     return logs
+
+
+def _eval_metrics(mod: Modules, x: torch.Tensor, true_pitch: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The metric suite and the loss terms of one batch, eval mode, the
+    odd-ratio prior off (``prior_scale`` 0: eval losses stay comparable)."""
+    cfg = mod.config
+    if cfg.eval_comb_correction or cfg.eval_octave_correction:
+        raise NotImplementedError(
+            "eval_comb_correction / eval_octave_correction are not ported yet (ROADMAP)")
+    _, (logs, out) = compute_loss(mod, x, train=False, prior_scale=0.0)
+    pitch_hz = out["pitch_hz"]  # [batch, frames, 1]
+    true_hz = true_pitch[:, None, :].expand(pitch_hz.shape)
+    true_unit = hz_to_unit(true_pitch, mod.freq_hz_min, mod.freq_hz_max)
+    m = metrics_lib.compute_metrics(
+        mod.evaluation_metrics, x, out["x_hat"], pitch_hz, true_hz,
+        frequency_unit=out["pitch_unit"],
+        true_frequency_unit=true_unit[:, None, :].expand(pitch_hz.shape))
+    m.update(logs)
+    return m
+
+
+def make_eval_step(mod: Modules) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(x [batch, n_samples], true f0 [batch, 1]) -> {metric: 0-dim tensor}."""
+    def eval_step(x: torch.Tensor, true_pitch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            return _eval_metrics(mod, x, true_pitch)
+
+    return eval_step
+
+
+def make_eval_all(mod: Modules) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(xs [n_batches, batch, n_samples], f0s [n_batches, batch, 1]) -> the
+    mean of each metric over the batches (equal batch weights)."""
+    eval_step = make_eval_step(mod)
+
+    def eval_all(xs: torch.Tensor, f0s: torch.Tensor) -> Dict[str, torch.Tensor]:
+        ms = [eval_step(x, f0) for x, f0 in zip(xs, f0s)]
+        return {k: torch.mean(torch.stack([m[k] for m in ms])) for k in ms[0]}
+
+    return eval_all
+
+
+def evaluate(mod: Modules, eval_step: Callable, split: data_lib.SplitArrays,
+             batch_size: int) -> Dict[str, float]:
+    """Mean of each metric over the split's batches (the last one may be
+    short), each batch peak-normalised and sent to ``mod.device``."""
+    sums: Dict[str, float] = {}
+    count = 0
+    for batch in data_lib.iterate_batches(split, batch_size, drop_last=False):
+        m = eval_step(torch.as_tensor(batch["x"], dtype=torch.float32, device=mod.device),
+                      torch.as_tensor(batch["frequency"], dtype=torch.float32,
+                                      device=mod.device))
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        count += 1
+    return {k: v / max(count, 1) for k, v in sums.items()}
 
 
 def predict(mod: Modules, x, octave_correction: Optional[bool] = None

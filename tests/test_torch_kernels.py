@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from sot_tpu_torch.ops.cqt import cqt_bank
 from sot_tpu_torch.ops.kernels import cqt as kcqt
 from sot_tpu_torch.ops.kernels import merge as kmerge
+from sot_tpu_torch.ops.kernels import plane as kplane
 from sot_tpu_torch.ops.kernels import refgrad as krefgrad
 from sot_tpu_torch.ops.kernels import synth as ksynth
 from sot_tpu_torch.ops.wasserstein import clipped_cdfs
@@ -190,3 +192,68 @@ def test_cqt_refuses_inputs_that_need_a_gradient_on_card():
         kcqt.cqt_project(xpad.requires_grad_(True), bank, 256, 16, 570)
     with torch.no_grad():  # grad mode off: the kernel runs
         assert kcqt.cqt_project(xpad, bank, 256, 16, 570).shape == (2, 16, 570)
+
+
+def _plane_on(device, arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+
+
+def _plane_pair(alpha, beta, g, wbar, p):
+    """(kernel outputs, plain outputs): W, (dalpha, dbeta), dbeta without alpha."""
+    outs = []
+    for fwd, bwd in ((kplane.sot_plane_forward, kplane.sot_plane_backward),
+                     (kplane.sot_plane_forward_plain, kplane.sot_plane_backward_plain)):
+        da, db = bwd(alpha, beta, g, p, wbar, True)
+        outs.append((fwd(alpha, beta, g, p), da, db, bwd(alpha, beta, g, p, wbar, False)[1]))
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [258, 1026])
+@pytest.mark.parametrize("p", [2.0, 3.0])
+def test_plane_kernels_bit_equal_on_dyadic_rows_on_card(n, p):
+    """Kernels 6 and 7 against their plain versions on rows where every
+    product and sum is exact: bit for bit, the tie convention included."""
+    _need_cuda()
+    arrays = _plane_on("cuda", chip_smoke.dyadic_plane_rows(np.random.default_rng(n), 1024, n))
+    before = (kplane.launches, kplane.backward_launches)
+    got, ref = _plane_pair(*arrays, p)
+    torch.cuda.synchronize()
+    assert (kplane.launches, kplane.backward_launches) == (before[0] + 1, before[1] + 2)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [True, False])
+def test_plane_kernels_match_plain_on_random_rows_on_card(sort):
+    """Sorted rows (the band) and unsorted rows (the full scan), within
+    chip_smoke's PLANE_LIMITS."""
+    _need_cuda()
+    rows, n = (1024, 1026) if sort else (64, 258)
+    arrays = _plane_on("cuda", chip_smoke.random_plane_rows(np.random.default_rng(1), rows, n,
+                                                            sort=sort))
+    got, ref = _plane_pair(*arrays, 2.0)
+    torch.cuda.synchronize()
+    w_lim, d_lim = chip_smoke.PLANE_LIMITS
+    assert float(((got[0] - ref[0]).abs() / ref[0].abs().clamp(min=1e-30)).max()) <= w_lim
+    for a, b in zip(got[1:], ref[1:]):
+        assert float((a - b).abs().max()) <= d_lim * float(b.abs().max())
+
+
+def test_plane_wrappers_take_plain_version_on_cpu():
+    arrays = _plane_on("cpu", chip_smoke.dyadic_plane_rows(np.random.default_rng(0), 16, 40))
+    before = (kplane.launches, kplane.backward_launches)
+    kplane.sot_plane_forward(*arrays[:3], 2.0)
+    da, db = kplane.sot_plane_backward(*arrays[:3], 2.0, arrays[3], alpha_grads=False)
+    assert da is None and db.shape == (16, 40)
+    assert (kplane.launches, kplane.backward_launches) == before
+
+
+def test_plane_wrappers_raise_on_non_cuda_devices():
+    a = torch.empty((4, 8), device="meta")
+    g = torch.empty((8,), device="meta")
+    with pytest.raises(ValueError, match="sot_plane_forward"):
+        kplane.sot_plane_forward(a, a, g, 2.0)
+    with pytest.raises(ValueError, match="sot_plane_backward"):
+        kplane.sot_plane_backward(a, a, g, 2.0, torch.empty((4,), device="meta"))

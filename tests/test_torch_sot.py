@@ -1,7 +1,8 @@
 """The port's same-grid SOT path against ``sot_tpu.ops.pallas``: the B4
 coupling's plain version, the B5 reference-convention gradient's plain
 version, and ``wasserstein_same_grid`` (the ``ref`` mode: merge-coupling
-forward, rank-query backward).
+forward, rank-query backward); the banded-plane routes are in
+``tests/test_torch_plane.py``.
 
 The JAX kernels run as the JAX package's own tests run them on the CPU
 (``SOT_TPU_PALLAS_INTERPRET=1``). Gradients are compared UNMASKED, kinks
@@ -31,6 +32,7 @@ from sot_tpu.ops.pallas import sot as jsot  # noqa: E402
 from sot_tpu.ops import wasserstein as jw  # noqa: E402
 from sot_tpu_torch.ops import wasserstein as tw  # noqa: E402
 from sot_tpu_torch.ops.kernels import merge as kmerge  # noqa: E402
+from sot_tpu_torch.ops.kernels import plane as kplane  # noqa: E402
 from sot_tpu_torch.ops.kernels import refgrad as krefgrad  # noqa: E402
 from test_sot_pallas import _make_case as _sot_pallas_case  # noqa: E402
 
@@ -146,7 +148,7 @@ def test_sot_w2_merge_matches_jax(kind, lqr, v_mass):
             + (beta - np.pad(beta, ((0, 0), (1, 0)))[:, :-1]) @ gaug ** 2)
     tol = 3e-5 * float(marg.max())
     refs = [jsot._sot_w2_sortmerge(ja, jb, jg), jsot._sot_bilinear_xla(ja, jb, jg, 2.0),
-            tw._sot_bilinear_xla(_t(alpha), _t(beta), _t(gaug), 2.0).numpy()]
+            kplane.sot_plane_forward_plain(_t(alpha), _t(beta), _t(gaug), 2.0).numpy()]
     if kind == "ties":
         refs.append(jax.jit(jmerge.sot_w2_merge, static_argnums=3)(ja, jb, jg, True))
     for ref in refs:
@@ -167,7 +169,8 @@ def test_ref_grad_plain_matches_jax(kind, lqr, v_mass):
     dense = np.asarray(jrefgrad.plane_grad_beta_dense(*j))
     _assert_close(got, dense, 2e-5)
     _assert_close(got, np.asarray(jrefgrad.ref_grad_beta_xla(*j)), 2e-5)
-    port_dense = krefgrad.plane_grad_beta_dense(*(_t(v) for v in (alpha, beta, gaug, wbar)))
+    _, port_dense = kplane.sot_plane_backward_plain(_t(alpha), _t(beta), _t(gaug), 2.0,
+                                                    _t(wbar), alpha_grads=False)
     _assert_close(port_dense.numpy(), dense, 2e-5)
     if kind == "ties":
         _assert_close(got, np.asarray(jax.jit(jrefgrad.ref_grad_beta)(*j)), 2e-5)
@@ -276,9 +279,18 @@ def test_gradient_at_attained_and_saturated_caps(monkeypatch):
 
 @pytest.mark.parametrize("p,target_constant", [(3.0, True), (2.0, False)])
 def test_unported_plane_paths_raise(p, target_constant):
+    """The paths that raised before the banded-plane kernels (B6-B7) were
+    ported now run: p = 3 through ``plane``, a live target through
+    ``hybrid``, each equal to the dense O(n^2) form (W within 3e-5 of the
+    marginal terms, as above)."""
     grid, u, v = _make_case(1, rows=2, n=8)
-    with pytest.raises(NotImplementedError, match="banded-plane"):
-        tw.wasserstein_same_grid(_t(grid), _t(u), _t(v), p=p, target_constant=target_constant)
+    w = tw.wasserstein_same_grid(_t(grid), _t(u), _t(v), p=p, target_constant=target_constant)
+    alpha, beta, gaug = tw.clipped_cdfs(_t(grid), _t(u), _t(v))
+    ref = kplane.sot_plane_forward_plain(alpha, beta, gaug, p).numpy()
+    a, b, g = alpha.numpy(), beta.numpy(), gaug.numpy()
+    marg = ((a - np.pad(a, ((0, 0), (1, 0)))[:, :-1]) @ np.abs(g) ** p
+            + (b - np.pad(b, ((0, 0), (1, 0)))[:, :-1]) @ np.abs(g) ** p)
+    np.testing.assert_allclose(w.numpy(), ref, atol=3e-5 * float(marg.max()), rtol=0)
 
 
 @pytest.mark.parametrize("lqr", [False, True])
