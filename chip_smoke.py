@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the SOT-2048 serving
-path (predict), the SOT-2048 train step, and the SOT-512 family's train
-step and evaluation.
+path (predict), the SOT-2048 train step, the SOT-512 family's train step
+and evaluation, and the gated train step (the ``full`` merge route, the
+STFT frontend and the conv kernels: ``KernelGates(w2_merge="full",
+conv=True, stft_frontend=True)``).
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
-  2. build   — compile csrc/{cqt,synth,merge,refgrad,plane}.cu (sm_90a) in
-               parallel: seven kernels (synth.cu and plane.cu hold a forward
-               and a backward each)
+  2. build   — compile csrc/{cqt,synth,merge,refgrad,plane,stft,conv}.cu
+               (sm_90a) in parallel: eleven kernels (synth.cu, merge.cu,
+               plane.cu and conv.cu hold two each)
   3. kernels — each slice-1 kernel against its plain PyTorch version on the
                card at the serving shapes: CQT [64, 4095] -> [64, 16, 570]
                within max|d|/max|ref| <= 1e-4 (f32 vs f32, TF32 off,
@@ -44,7 +46,15 @@ Phases (any failure raises and the script exits non-zero):
                against JAX's (SOT_ROW_LIMITS); [timing] of kernels 4-7 at
                [1024, 258] and 6-7 at [1024, 1026] (CUDA events and the
                profiler's device time), the A/B of the two SOT-512 backward
-               routes (kernel 5 against kernel 7)
+               routes (kernel 5 against kernel 7); the gated path's kernels:
+               the coupling gradient (kernel 8, alpha_grads both ways) on
+               the real SOT rows within COUPLING_GRAD_LIMIT, bit for bit on
+               dyadic tie rows, on unsorted rows; the STFT frontend (kernel
+               9) at each (n_fft, hop) of the gated steps within
+               FRONTEND_LIMIT; the conv forward and dx (kernel 10) and
+               weight gradient (kernel 11) at conv1's and the prefilter's
+               shapes in f32 and bf16 within CONV_LIMIT; [timing] of each
+               (CUDA events, profiler device time, plain, library, bound)
   7. train-golden — sot_tpu_torch/golden/sot2048_seed42_trainstep.npz (JAX
                on the CPU with the shipped kernel gates), eval mode, the
                golden's 16 clips: the merge and refgrad kernels on the
@@ -68,6 +78,15 @@ Phases (any failure raises and the script exits non-zero):
                golden's 64 clips against JAX's stored metrics: LSD, MSE,
                MSS and the loss terms within EVAL_REL, the pitch accuracies
                and the octave difference within one frame
+ 9b. train-golden-gated — the same for sot2048_seed42_trainstep_gated.npz
+               (JAX with SOT_TPU_W2_MERGE=1, SOT_TPU_STFT_PALLAS=1,
+               SOT_TPU_CONV_PALLAS=1) against the port under GATED: kernel 8
+               on JAX's rows against JAX's merge-gradient kernel, the full
+               route end to end on JAX's spectra (ROUTE_ROW_LIMITS, rows
+               whose cap agrees), limits GRAD_LIMITS_GATED and
+               LEAF_COSINE_GATED, the encoder's parameter gradients against
+               the CPU (ENCODER_LIMIT), and five controls (the synth's three,
+               kernel 8's and kernel 11's gradient 10% low)
  10. train   — the config's dataset generated on the card by the port's data
                module, train steps at batch 64 in train mode (dropout,
                Adam), each run's launch counts showing its SOT route, finite
@@ -76,7 +95,10 @@ Phases (any failure raises and the script exits non-zero):
                steps then a window of 32 more (median step ms, train
                frames/s over the summed step time) and a torch.profiler
                breakdown of one more; SOT-512-LogF (hybrid) and SOT-2048
-               under kernels="default" (plane, kernels 6 + 7) 4 steps each
+               under kernels="default" (plane, kernels 6 + 7) 4 steps each;
+               SOT-2048 under GATED (kernels 4 and 8-11, refgrad and the
+               plane kernels at 0) 4 steps, a window of 32 and a profile,
+               and SOT-512 under GATED 4 steps
 
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations. The last three lines are the per-kernel JSON (each
@@ -106,16 +128,20 @@ from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat, params_f
 from sot_tpu_torch.device import set_precision_policy
 from sot_tpu_torch.ops.cqt import cqt_bank
 from sot_tpu_torch.ops.kernels import _build
+from sot_tpu_torch.kernel_gates import KernelGates
+from sot_tpu_torch.ops.kernels import conv as kconv
 from sot_tpu_torch.ops.kernels import cqt as kcqt
 from sot_tpu_torch.ops.kernels import merge as kmerge
 from sot_tpu_torch.ops.kernels import plane as kplane
 from sot_tpu_torch.ops.kernels import refgrad as krefgrad
 from sot_tpu_torch.models import synths as synths_lib
 from sot_tpu_torch.ops import wasserstein as wasserstein_lib
+from sot_tpu_torch.ops.kernels import stft as kstft
 from sot_tpu_torch.ops.kernels import synth as ksynth
 from sot_tpu_torch.ops.numerics import exp_sigmoid, get_cqt_n_bins
 from sot_tpu_torch.ops.oscillator import get_harmonic_frequencies, remove_above_nyquist
 from sot_tpu_torch.ops.wasserstein import clipped_cdfs
+from sot_tpu_torch.ops.windows import get_window, hann_window
 from sot_tpu_torch.training import trainer
 from sot_tpu_torch.training.trainer import build_modules, predict
 
@@ -123,9 +149,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot2048_seed42_predict.npz")
 GOLDEN_TRAIN = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot2048_seed42_trainstep.npz")
 GOLDEN_512 = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot512_seed42_trainstep.npz")
+GOLDEN_GATED = os.path.join(ROOT, "sot_tpu_torch", "golden",
+                            "sot2048_seed42_trainstep_gated.npz")
 
-# H100 SXM data sheet (dense): FP32 on the CUDA cores, HBM3 bandwidth.
+# H100 SXM data sheet (dense): FP32 on the CUDA cores, bf16 on the tensor
+# cores, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # FP32 operations per (lane, sample) of the synth: f-envelope 3 (sub, mul,
 # add), a-envelope 3 (mul, mul, add), Nyquist compare 1, phase increment 1,
@@ -181,6 +211,32 @@ PLANE_LIMITS = (1e-6, 1e-6)
 # one frame of the 64 x 16
 EVAL_REL = 1e-3
 EVAL_FRAME = 1.0 / (BATCH * 16)
+# The gated path: the full merge route (kernels 4 + 8), the STFT frontend
+# (kernel 9), the k > 1 convs on kernels 10 and 11 with bf16 operands
+GATED = KernelGates(w2_merge="full", conv=True, stft_frontend=True)
+# kernel 8 against its plain version where it is not bit-equal: max|d|/max
+# (both sum x in float64, in another order, and round once)
+COUPLING_GRAD_LIMIT = 1e-6
+# kernel 9 against the plain f32 matmul (TF32 off): max|d|/max (f32 sums
+# over n_fft taps in another order)
+FRONTEND_LIMIT = 1e-5
+# kernels 10 and 11 against F.conv1d / conv1d_weight on the same rounded
+# operands (TF32 off): max|d|/max (exact products, f32 sums in another order)
+CONV_LIMIT = 1e-5
+# [train-golden-gated]: per leaf against the gated JAX golden, ~1.5x the
+# card's readings (worst leaf 3.006e-01 / 5.261e-02 / 2.900e-01 for W1D /
+# MSS / total, least cosine 0.990001 / 0.999488 / 0.989517). The W1D
+# readings are the CPU's too (3.010e-01): they come from one SOT row whose
+# quantile cap moves between the JAX package's blocked f32 CDF sums and the
+# port's float64 ones, where the full route's v cotangent moves by 0.92 of
+# its max (route_rows_check prints it). The encoder's parameter gradients
+# on the card against the CPU: ~2x the card's reading (2.923e-04).
+GRAD_LIMITS_GATED = {"w1d": 0.45, "mss": 0.08, "total": 0.45}
+LEAF_COSINE_GATED = {"w1d": 0.985, "mss": 0.9992, "total": 0.984}
+ENCODER_LIMIT = 6e-4
+# the SOT route end to end on JAX's rows whose cap agrees: W and the v
+# cotangent, max|d| over their max
+ROUTE_ROW_LIMITS = (3e-5, 1e-3)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -202,25 +258,39 @@ def roofline(flops: float, bytes_moved: float):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def device_ms(fn, inputs, kernel: str) -> float:
-    """Mean device time per call of the CUDA kernels whose name contains
-    ``kernel`` (torch.profiler, TIMING_ITERS calls cycling through
-    ``inputs``): the kernel alone, without the host's launch gap that a
-    CUDA-event time of a microsecond kernel includes."""
+def device_ms(fn, inputs, kernel: str, per_call: int = 1) -> float:
+    """Mean device time per call of the ``per_call`` distinct CUDA kernels
+    whose name contains ``kernel`` (torch.profiler, TIMING_ITERS calls
+    cycling through ``inputs``): the kernels alone, without the host's launch
+    gap that a CUDA-event time of a microsecond kernel includes. The sum of
+    each kernel's mean over the records the profiler gave: it can drop
+    records (an H100 run saw 25 of 40), so a profile that holds fewer than
+    half of some kernel's launches is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for args in inputs[:2]:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(TIMING_ITERS):
-            fn(*inputs[i % len(inputs)])
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    require(len(us) == TIMING_ITERS, f"the profiler saw {len(us)} {kernel} launches")
-    return sum(us) / 1e3 / TIMING_ITERS
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(TIMING_ITERS):
+                fn(*inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        us: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and kernel in e.name:
+                us.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        counts = sorted(len(v) for v in us.values())
+        if len(us) == per_call and counts[0] >= TIMING_ITERS // 2:
+            break
+    require(len(us) == per_call and counts[0] >= TIMING_ITERS // 2,
+            f"the profiler saw {counts} launches of {len(us)} {kernel} kernels, "
+            f"expected {per_call} x {TIMING_ITERS}")
+    if counts != [TIMING_ITERS] * per_call:
+        print(f"[timing] the profiler gave {counts} of {TIMING_ITERS} records of the {kernel} "
+              f"kernels: their device ms are means over those")
+    return sum(statistics.fmean(v) for v in us.values()) / 1e3
 
 
 def median_ms(fn, inputs) -> float:
@@ -465,8 +535,9 @@ def cosine(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def sot_rows_errors(g, dev, route):
-    """The route's SOT kernels (the merge forward, and kernel 5 for ``ref``
-    or kernel 7 for ``hybrid``) on the clipped CDFs of real SOT rows (JAX's
+    """The route's SOT kernels (the merge forward, and kernel 5 for ``ref``,
+    kernel 7 for ``hybrid`` or kernel 8 for ``full``) on the clipped CDFs of
+    real SOT rows (JAX's
     spectra: identical inputs, where the gradient convention must match
     exactly) against the JAX Pallas kernels' outputs (interpret mode, CPU):
     W's max|d| over the largest marginal term, the beta cotangent's
@@ -475,8 +546,16 @@ def sot_rows_errors(g, dev, route):
                          for k in ("sot_alpha", "sot_beta", "sot_gaug"))
     rows = alpha.shape[0]
     w = kmerge.sot_w2_merge(alpha, beta, gaug).cpu().numpy()
-    db = route_grad_beta(alpha, beta, gaug, torch.full((rows,), 1.0 / rows, device=dev),
-                         route).cpu().numpy()
+    if route == "full":
+        # kernel 8's dS/db against JAX's merge-gradient kernel, which sees the
+        # columns without the last (shaved: its grid delta is 0, and so is the
+        # port's last column)
+        db = kmerge.coupling_grads(*complements(alpha, beta, gaug), False)[1].cpu().numpy()
+        require(not np.any(db[:, -1]), "the coupling gradient's last column is not 0")
+        db = db[:, :-1]
+    else:
+        db = route_grad_beta(alpha, beta, gaug, torch.full((rows,), 1.0 / rows, device=dev),
+                             route).cpu().numpy()
     a, b, x2 = g["sot_alpha"], g["sot_beta"], g["sot_gaug"] ** 2
     marg = ((a - np.pad(a, ((0, 0), (1, 0)))[:, :-1]) @ x2
             + (b - np.pad(b, ((0, 0), (1, 0)))[:, :-1]) @ x2)
@@ -604,6 +683,19 @@ def grad_controls(route):
         ("synth d frequencies 10% low", on_synth,
          lambda a, f, t, sr: synth(a, scaled_grad(f, 0.9), t, sr)),
     ]
+    if route == "full":
+        coupling_grads, conv_weight = kmerge.coupling_grads, kconv.conv1d_weight
+
+        def low_db(a, b, x, alpha_grads=True):
+            da, db = coupling_grads(a, b, x, alpha_grads)
+            return da, 0.9 * db
+
+        return controls + [
+            ("kernel 8 coupling gradient 10% low",
+             [(kmerge, "coupling_grads"), (wasserstein_lib, "coupling_grads")], low_db),
+            ("kernel 11 conv weight gradient 10% low", [(kconv, "conv1d_weight")],
+             lambda x, dy, k, dtype=torch.bfloat16: 0.9 * conv_weight(x, dy, k, dtype)),
+        ]
     if route == "ref":
         sot = krefgrad.ref_grad_beta
         on_sot = [(krefgrad, "ref_grad_beta"), (wasserstein_lib, "ref_grad_beta")]
@@ -729,16 +821,22 @@ def compare_devices(cfg, card, cpu, phase, route):
 
 
 def route_bwd_name(route: str) -> str:
-    return "refgrad" if route == "ref" else "plane backward"
+    return {"ref": "refgrad", "full": "coupling gradient, STFT frontend"}.get(
+        route, "plane backward")
 
 
-def train_golden_gates(g, dev, mod, x, composed, limits, route):
+def train_golden_gates(g, dev, mod, x, composed, limits, route, encoder):
     """Every gate of the phase: {gate: (passed, readings)}."""
     err_w, err_db, share = sot_rows_errors(g, dev, route)
     _, grads, _, _ = loss_and_grads(mod, x)
     readings, misses = leaf_readings(grads, g, limits)
     err_a, err_f = composed()
-    return {
+    gates = {}
+    if encoder is not None:
+        err_e = encoder()
+        gates["encoder kernels against the CPU"] = (err_e <= ENCODER_LIMIT,
+                                                    f"parameter gradients {err_e:.3e}")
+    return gates | {
         "SOT kernels on JAX's rows": (
             err_w <= SOT_ROW_LIMITS[0] and err_db <= SOT_ROW_LIMITS[1],
             f"W {err_w:.3e}, beta cotangent {err_db:.3e} (bit-equal share {share:.6f})"),
@@ -753,21 +851,22 @@ def train_golden_gates(g, dev, mod, x, composed, limits, route):
 
 
 def check_train_golden(cfg, dev, golden=GOLDEN_TRAIN, weights=GOLDEN,
-                       limits=(GRAD_LIMITS, LEAF_COSINE), phase="train-golden"):
+                       limits=(GRAD_LIMITS, LEAF_COSINE), phase="train-golden", kernels="auto"):
     """The train step's gradient on ``dev`` against the JAX CPU golden and
     the port on the CPU (eval mode, the golden's 16 clips): the SOT route's
     kernels on JAX's rows, the loss and its two terms, the gradient of each
-    term per parameter leaf within ``limits``, the composed kernels; on the
-    card, the readings against the port on the CPU; then every control must
-    fail a gate. ``weights``: the npz holding the model's parameters."""
+    term per parameter leaf within ``limits``, the composed kernels, under
+    the conv gate the encoder's kernels; on the card, the readings against
+    the port on the CPU; then every control must fail a gate. ``weights``:
+    the npz holding the model's parameters; ``kernels``: the port's gates."""
     with np.load(golden) as z:
         g = {k: z[k] for k in z.files}
-    route = wasserstein_lib.w2_route(int(g["sot_alpha"].shape[1]) - 1)
+    route = wasserstein_lib.w2_route(int(g["sot_alpha"].shape[1]) - 1, kernels)
     print(f"[{phase}] {cfg.name}, {g['x'].shape[0]} clips, JAX gates {g['gates']}; the "
           f"port's SOT route {route!r}")
-    mod = build_modules(cfg, device=dev)
+    mod = build_modules(cfg, device=dev, kernels=kernels)
     load_golden_weights(mod, weights)
-    mod_cpu = build_modules(cfg, device="cpu")
+    mod_cpu = build_modules(cfg, device="cpu", kernels=kernels)
     load_golden_weights(mod_cpu, weights)
     x_cpu = torch.from_numpy(g["x"])
     x = x_cpu.to(dev)
@@ -779,6 +878,8 @@ def check_train_golden(cfg, dev, golden=GOLDEN_TRAIN, weights=GOLDEN,
           f"{SOT_ROW_LIMITS[1]}), bit-equal share {share:.6f}")
     require(err_w <= SOT_ROW_LIMITS[0] and err_db <= SOT_ROW_LIMITS[1],
             "SOT kernels disagree with JAX on real rows")
+    if "route_u" in g:
+        route_rows_check(g, dev, kernels, phase)
 
     losses, grads, dx, out = loss_and_grads(mod, x)
     readings, misses = leaf_readings(grads, g, limits)
@@ -806,12 +907,21 @@ def check_train_golden(cfg, dev, golden=GOLDEN_TRAIN, weights=GOLDEN,
           f"frequencies {err_f:.3e} of their max (limit {COMPOSED_LIMIT})")
     require(err_a <= COMPOSED_LIMIT and err_f <= COMPOSED_LIMIT,
             "the composed kernels disagree with the CPU")
+    encoder = None
+    if mod.kernels.conv:
+        encoder = encoder_check(mod, mod_cpu, x_cpu)
+        err = encoder()
+        print(f"[{phase}] encoder (conv kernels 10 and 11, {mod.kernels.conv_dtype}) from the "
+              f"CPU's CQT features and one fixed cotangent on its heads, against the same on "
+              f"the CPU: parameter gradients max|d|/max {err:.3e} (limit {ENCODER_LIMIT}); per "
+              f"leaf " + ", ".join(f"{k} {v:.2e}" for k, v in encoder(per_leaf=True).items()))
+        require(err <= ENCODER_LIMIT, "the encoder's kernels disagree with the CPU")
 
     for name, targets, fn in grad_controls(route):
         with contextlib.ExitStack() as stack:
             for module, attr in targets:
                 stack.enter_context(mock.patch.object(module, attr, fn))
-            gates = train_golden_gates(g, dev, mod, x, composed, limits, route)
+            gates = train_golden_gates(g, dev, mod, x, composed, limits, route, encoder)
         rejected = [k for k, (ok, _) in gates.items() if not ok]
         print(f"[{phase}] control ({name}): rejected by {rejected}; "
               + "; ".join(f"{k}: {v}" for k, (_, v) in gates.items()))
@@ -823,6 +933,63 @@ def check_train_golden(cfg, dev, golden=GOLDEN_TRAIN, weights=GOLDEN,
           f"{int(g['cap_rows_jump'])} by more than 1e-6 rel (largest "
           f"{float(g['cap_jump_max_rel']):.3e}); target CDF rows that JAX's prefix sum makes "
           f"step down: {int(g['cdf_rows_decreasing'])}")
+
+
+def encoder_check(mod, mod_cpu, x_cpu):
+    """The encoder's parameter gradients on the card against the CPU, from
+    the CPU's CQT features of ``x_cpu`` and one fixed cotangent on its two
+    heads, eval mode. Returns a function giving the largest max|d|/max over
+    the leaves (or each leaf's, with per_leaf)."""
+    with torch.no_grad():
+        feats = mod_cpu.feature_extractor(x_cpu[:, :-1])
+    feats = feats.reshape(-1, feats.shape[-1])
+    rng = np.random.default_rng(11)
+
+    def grads(m, f, cot=None):
+        m.encoder.eval()
+        z = m.encoder(f)
+        if cot is None:
+            cot = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(np.float32))
+                   for k, v in z.items()}
+        loss = sum(torch.sum(v * cot[k].to(v.device)) for k, v in z.items())
+        names, params = zip(*m.encoder.named_parameters())
+        return dict(zip(names, torch.autograd.grad(loss, params))), cot
+
+    ref, cot = grads(mod_cpu, feats)
+    feats_dev = feats.to(mod.device)
+
+    def errors(per_leaf=False):
+        got, _ = grads(mod, feats_dev, cot)
+        errs = {k: max_rel(got[k], ref[k]) for k in ref}
+        return errs if per_leaf else max(errs.values())
+
+    return errors
+
+
+def route_rows_check(g, dev, kernels, phase):
+    """The SOT route end to end (CDFs, the quantile cap, the merge value and
+    its gradient) on JAX's own normalised spectra: W and the v cotangent per
+    row against the JAX package's, on the rows whose cap agrees to within
+    about 2 ulps (the JAX package sums the CDFs in blocked f32, the port in
+    float64; where that moves the cap to another CDF value, the gradient of
+    the row moves with it: on the golden's rows by up to 0.92 of the max)."""
+    u, v = (torch.from_numpy(g[k]).to(dev) for k in ("route_u", "route_v"))
+    grid = torch.from_numpy(g["sot_gaug"][:-1]).to(dev)
+    vt = v.clone().requires_grad_(True)
+    w = wasserstein_lib.wasserstein_same_grid(grid, u, vt, p=2.0, limit_quantile_range=True,
+                                              target_constant=True, kernels=kernels)
+    (dv,) = torch.autograd.grad(torch.mean(w), vt)
+    with torch.no_grad():
+        cap = clipped_cdfs(grid, u, v, True)[0][:, -1].cpu().numpy()
+    jump = np.abs(cap - g["route_cap"]) > 1e-7 * g["route_cap"]  # ~2 ulps
+    row_err = (np.abs(dv.cpu().numpy() - g["route_dv"]).max(-1) / np.abs(g["route_dv"]).max())
+    w_err = np.abs(w.detach().cpu().numpy() - g["route_w"]) / np.abs(g["route_w"]).max()
+    print(f"[{phase}] the SOT route on JAX's {len(cap)} rows of normalised spectra: the cap "
+          f"differs on {int(jump.sum())} rows {np.nonzero(jump)[0].tolist()}; on the other rows "
+          f"W max|d|/max {w_err[~jump].max():.3e}, v cotangent max|d|/max {row_err[~jump].max():.3e} "
+          f"(limits {ROUTE_ROW_LIMITS}); on the cap rows {np.round(row_err[jump], 4).tolist()}")
+    require(w_err[~jump].max() <= ROUTE_ROW_LIMITS[0] and row_err[~jump].max()
+            <= ROUTE_ROW_LIMITS[1], "the SOT route disagrees with JAX's on its rows")
 
 
 def sot_rows(mod, x):
@@ -839,10 +1006,7 @@ def sot_rows(mod, x):
 
 
 def check_merge(alpha, beta, gaug, make_inputs):
-    cap = alpha[:, -1:]
-    x = (gaug[1:] - gaug[:-1]).contiguous()
-    a = (cap - alpha[:, :-1]).contiguous()
-    b = (cap - beta[:, :-1]).contiguous()
+    a, b, x = complements(alpha, beta, gaug)
     got = kmerge.coupling(a, b, x)
     ref = kmerge.coupling_plain(a, b, x)
     torch.cuda.synchronize()
@@ -854,11 +1018,7 @@ def check_merge(alpha, beta, gaug, make_inputs):
           f"{int((ref == 0).sum())}")
     require(bool(torch.isfinite(got).all()) and rel <= 1e-5, "merge coupling kernel disagrees")
 
-    inputs = []
-    for al, be, ga in make_inputs():
-        c = al[:, -1:]
-        inputs.append(((c - al[:, :-1]).contiguous(), (c - be[:, :-1]).contiguous(),
-                       (ga[1:] - ga[:-1]).contiguous()))
+    inputs = [complements(*r) for r in make_inputs()]
     ms = median_ms(kmerge.coupling, inputs)
     plain_ms = median_ms(kmerge.coupling_plain, inputs)
     rows, m = a.shape
@@ -990,10 +1150,15 @@ def check_plane_case(what, arrays, dev, p, exact):
 
 def route_grad_beta(alpha, beta, gaug, wbar, route):
     """The beta cotangent of the SOT route's backward: kernel 5 for ``ref``,
-    kernel 7 (target constant) for ``hybrid`` and ``plane``. Looked up at
-    call time, so that a control's patch reaches it."""
+    kernel 7 (target constant) for ``hybrid`` and ``plane``; for ``full``,
+    kernel 8's coupling gradient dS/db times the row weights (zero on the
+    tail lane). Looked up at call time, so that a control's patch reaches
+    it."""
     if route == "ref":
         return krefgrad.ref_grad_beta(alpha, beta, gaug, wbar)
+    if route == "full":
+        db = kmerge.coupling_grads(*complements(alpha, beta, gaug), False)[1]
+        return wbar[:, None] * torch.nn.functional.pad(db, (0, 1))
     return kplane.sot_plane_backward(alpha, beta, gaug, 2.0, wbar, False)[1]
 
 
@@ -1198,16 +1363,226 @@ def check_synth_backward(cfg, dev, rng):
     }
 
 
+def complements(alpha, beta, gaug):
+    """(a, b, x) of the coupling on clipped augmented CDFs: a = cap - alpha,
+    b = cap - beta over the body lanes, x the grid deltas."""
+    cap = alpha[:, -1:]
+    return ((cap - alpha[:, :-1]).contiguous(), (cap - beta[:, :-1]).contiguous(),
+            (gaug[1:] - gaug[:-1]).contiguous())
+
+
+def coupling_grads_case(what, a, b, x, exact):
+    """Kernel B8 against its plain version, alpha_grads both ways; exact:
+    bit for bit. Returns max|d|."""
+    got = [kmerge.coupling_grads(a, b, x, ag) for ag in (True, False)]
+    ref = [kmerge.coupling_grads_plain(a, b, x, ag) for ag in (True, False)]
+    torch.cuda.synchronize()
+    pairs = [(got[0][0], ref[0][0]), (got[0][1], ref[0][1]), (got[1][1], ref[1][1])]
+    require(got[1][0] is None, "coupling_grads returned dS/da without alpha_grads")
+    equal = [torch.equal(g, r) for g, r in pairs]
+    rel = max(max_rel(g, r) for g, r in pairs)
+    finite = all(bool(torch.isfinite(g).all()) for g, _ in pairs)
+    print(f"[kernels] coupling gradient (B8) {what} a, b {tuple(a.shape)}: max|d|/max {rel:.3e} "
+          f"(da, db with alpha_grads, db without); bit-equal {equal}"
+          + (" (must be bit-equal)" if exact else f" (limit {COUPLING_GRAD_LIMIT})"))
+    require(finite and (all(equal) if exact else rel <= COUPLING_GRAD_LIMIT),
+            f"coupling gradient kernel disagrees on {what} rows")
+    return max(float((g - r).abs().max()) for g, r in pairs)
+
+
+def check_coupling_grads(alpha, beta, gaug, make_inputs, rng, dev):
+    """[kernels] and [timing] for B8: the real SOT rows, dyadic tie-heavy rows
+    bit for bit (every prefix sum of the grid deltas is exact, and the
+    result depends on a and b only through comparisons), unsorted rows (the
+    full scan); timed without alpha gradients, as the train step calls it."""
+    a, b, x = complements(alpha, beta, gaug)
+    err = coupling_grads_case(f"SOT rows of {BATCH} clips (real)", a, b, x, False)
+    dy = [torch.from_numpy(t).to(dev) for t in dyadic_plane_rows(rng, BATCH * 16, 1026)[:3]]
+    coupling_grads_case("dyadic tie-heavy", *complements(*dy), True)
+    un = [torch.from_numpy(t).to(dev) for t in random_plane_rows(rng, BATCH, 258, sort=False)[:3]]
+    err = max(err, coupling_grads_case("unsorted", *complements(*un), False))
+
+    inputs = [complements(*r) + (False,) for r in make_inputs()]
+    ms = median_ms(kmerge.coupling_grads, inputs)
+    dev_ms = device_ms(kmerge.coupling_grads, inputs, "coupling_grad_kernel")
+    plain_ms = median_ms(kmerge.coupling_grads_plain, inputs)
+    rows, m = a.shape
+    # reads a, b and x once, writes db; per element two binary searches of
+    # log2(m) compares and the product with x
+    bound_ms, bound_by = roofline(rows * m * (2 * math.log2(m) + 3),
+                                  4.0 * (2 * rows * m + m + rows * m))
+    print(f"[timing] coupling_grads (B8) {tuple(a.shape)}, no alpha gradients: {ms:.4f} ms "
+          f"(device {dev_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}) | "
+          f"{card_line()}")
+    return {
+        "name": "coupling_grads", "route": "cuda", "source": "sot_tpu_torch/csrc/merge.cu",
+        "replaces": "sot_tpu/ops/pallas/merge.py:235", "max_abs_err": err, "ms": ms,
+        "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+# the STFTs of the gated train steps that the frontend takes (T = 4096):
+# (n_fft, hop, window): SOT-2048's loss STFT, the MSS scales with hop % 128
+# == 0, SOT-512's loss STFT
+FRONTEND_CASES = [(2048, 256, "flattop"), (2048, 512, None), (1024, 256, None),
+                  (512, 128, None), (512, 256, "flattop")]
+
+
+def check_stft_frontend(dev, rng):
+    """[kernels] and [timing] for B9 at each (n_fft, hop) of the gated path
+    on [64, 4096] audio. The JSON entry is the loss STFT 2048/256."""
+    entry, err = None, 0.0
+    for n_fft, hop, window in FRONTEND_CASES:
+        win_np = hann_window(n_fft) if window is None else get_window(window, n_fft)
+        basis = kstft.windowed_dft(n_fft, win_np, dev)
+        n_cols = 2 * (n_fft // 2 + 1)
+
+        def audio():
+            x = rng.uniform(-0.9, 0.9, (BATCH, 4096)).astype(np.float32)
+            return torch.from_numpy(x).to(dev)
+
+        inputs = [(audio(), n_fft, hop, basis) for _ in range(TIMING_INPUTS)]
+        got = kstft.stft_frontend_kernel(*inputs[0])
+        ref = kstft.stft_frontend_projection_plain(*inputs[0])
+        torch.cuda.synchronize()
+        rel = max_rel(got, ref)
+        err = max(err, float((got - ref).abs().max()))
+        require(got.shape == (BATCH, 4096 // hop, n_cols) and bool(torch.isfinite(got).all())
+                and rel <= FRONTEND_LIMIT, f"stft frontend disagrees at {n_fft}/{hop}")
+        ms = median_ms(kstft.stft_frontend_kernel, inputs)
+        dev_ms = device_ms(kstft.stft_frontend_kernel, inputs, "stft_frontend_", 2)
+        plain_ms = median_ms(kstft.stft_frontend_projection_plain, inputs)
+        win = torch.from_numpy(win_np).to(dev)
+        lib_inputs = [(kstft._frames(a, n_fft, hop) * win,) for a, *_ in inputs]
+        library_ms = median_ms(lambda f: torch.fft.rfft(f, dim=-1), lib_inputs)
+        rows = BATCH * (4096 // hop)
+        # the function is the windowed rfft of each pad_end frame: ~2.5 n log2 n
+        # operations for a real FFT of n points plus n for the window, with the
+        # audio and the window read and the spectra written once. The dense DFT
+        # matmul that this kernel (and the TPU's) does is printed as information.
+        fft_ops = rows * (2.5 * n_fft * math.log2(n_fft) + n_fft)
+        bound_ms, bound_by = roofline(fft_ops, 4.0 * (BATCH * 4096 + n_fft + rows * n_cols))
+        dense_flops = 2.0 * rows * n_fft * n_cols
+        print(f"[kernels] stft frontend (B9) {n_fft}/{hop} {window or 'hann'} [{BATCH}, 4096] -> "
+              f"{tuple(got.shape)}: max|d|/max {rel:.3e} (limit {FRONTEND_LIMIT})")
+        print(f"[timing] stft_frontend (B9) {n_fft}/{hop}: {ms:.4f} ms (device {dev_ms:.4f}), "
+              f"plain {plain_ms:.4f}, cuFFT rfft of the windowed frames {library_ms:.4f}, bound "
+              f"{bound_ms:.4f} ({bound_by}; rfft {fft_ops / 1e6:.1f} MFLOP); the kernel's dense "
+              f"DFT {dense_flops / 1e9:.2f} GFLOP, {dense_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms "
+              f"at the FP32 peak | {card_line()}")
+        if entry is None:
+            entry = {"name": "stft_frontend", "route": "cuda",
+                     "source": "sot_tpu_torch/csrc/stft.cu",
+                     "replaces": "sot_tpu/ops/pallas/stft.py:69", "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms}
+    entry["max_abs_err"] = err
+    return entry
+
+
+def conv_bound(x, dy_or_y, weight, dtype):
+    """(bound_ms, bound_by) of one 'same' conv pass (B10 forward or dx, or
+    B11): 2 rows C_in C_out k W operations at the peak of the operand type
+    (bf16 tensor cores, or f32 CUDA cores), x and the other activation read
+    or written once in f32, the weight once."""
+    rows, cin, width = x.shape
+    cout, k = dy_or_y.shape[1], weight.shape[-1]
+    flops = 2.0 * rows * cin * cout * k * width
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    ops_s = flops / peak
+    bytes_s = 4.0 * (x.numel() + dy_or_y.numel() + weight.numel()) / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def check_conv(dev, rng):
+    """[kernels] and [timing] for B10 (forward and dx) and B11 (dW) at
+    conv1's (1 -> 40) and the prefilter's (40 -> 40) shapes of the 64-clip
+    batch ([1024, C, 285], k = 15), in both operand types. The JSON entries
+    are the prefilter's in bf16, the gated path's."""
+    entries, errs = {}, {"fwd": 0.0, "dw": 0.0}
+    rows, width, k, ch = BATCH * 16, 285, 15, 40
+    for cin in (1, ch):
+        for dtype in (torch.float32, torch.bfloat16):
+            def case():
+                x = rng.standard_normal((rows, cin, width)).astype(np.float32)
+                w = (rng.standard_normal((ch, cin, k)) / np.sqrt(cin * k)).astype(np.float32)
+                dy = rng.standard_normal((rows, ch, width)).astype(np.float32)
+                return tuple(torch.from_numpy(a).to(dev) for a in (x, w, dy))
+
+            x, w, dy = case()
+            wt = w.flip(-1).transpose(0, 1)  # dx: the tap-flipped, transposed weight
+            got = (kconv.conv1d_forward(x, w, dtype), kconv.conv1d_forward(dy, wt, dtype),
+                   kconv.conv1d_weight(x, dy, k, dtype))
+            ref = (kconv.conv1d_same_plain(x, w, dtype), kconv.conv1d_same_plain(dy, wt, dtype),
+                   kconv.conv1d_weight_plain(x, dy, k, dtype))
+            torch.cuda.synchronize()
+            rel = [max_rel(g, r) for g, r in zip(got, ref)]
+            errs["fwd"] = max(errs["fwd"], *(float((g - r).abs().max())
+                                           for g, r in zip(got[:2], ref[:2])))
+            errs["dw"] = max(errs["dw"], float((got[2] - ref[2]).abs().max()))
+            name = str(dtype).replace("torch.", "")
+            print(f"[kernels] conv (B10/B11) x {tuple(x.shape)}, weight {tuple(w.shape)}, {name} "
+                  f"operands: max|d|/max forward {rel[0]:.3e}, dx {rel[1]:.3e}, dW {rel[2]:.3e} "
+                  f"(limit {CONV_LIMIT})")
+            require(all(bool(torch.isfinite(g).all()) for g in got) and max(rel) <= CONV_LIMIT,
+                    f"conv kernels disagree at C_in {cin}, {name}")
+
+            inputs = [case() for _ in range(TIMING_INPUTS)]
+            fwd = [(a, b, dtype) for a, b, _ in inputs]
+            dxs = [(c, b.flip(-1).transpose(0, 1), dtype) for _, b, c in inputs]
+            dws = [(a, c, k, dtype) for a, _, c in inputs]
+            rounded = [tuple(kconv.round_to(t, dtype) for t in case) for case in inputs]
+            ms = {"fwd": median_ms(kconv.conv1d_forward, fwd),
+                  "dx": median_ms(kconv.conv1d_forward, dxs),
+                  "dw": median_ms(kconv.conv1d_weight, dws),
+                  "fwd device": device_ms(kconv.conv1d_forward, fwd, "conv_fwd_kernel"),
+                  "dw device": device_ms(kconv.conv1d_weight, dws, "conv_dw_", 2),
+                  "fwd plain": median_ms(kconv.conv1d_same_plain, fwd),
+                  "dw plain": median_ms(kconv.conv1d_weight_plain, dws),
+                  "fwd library": median_ms(
+                      lambda a, b: torch.nn.functional.conv1d(a, b, padding=k // 2),
+                      [(a, b) for a, b, _ in rounded]),
+                  "dw library": median_ms(
+                      lambda a, c: torch.nn.grad.conv1d_weight(a, (ch, cin, k), c, padding=k // 2),
+                      [(a, c) for a, _, c in rounded])}
+            bound = conv_bound(x, dy, w, dtype)
+            print(f"[timing] conv C_in {cin} {name}: B10 forward {ms['fwd']:.4f} ms (device "
+                  f"{ms['fwd device']:.4f}, plain {ms['fwd plain']:.4f}, cuDNN conv1d "
+                  f"{ms['fwd library']:.4f}), dx {ms['dx']:.4f} ms; B11 dW {ms['dw']:.4f} ms "
+                  f"(device {ms['dw device']:.4f}, plain {ms['dw plain']:.4f}, conv1d_weight "
+                  f"{ms['dw library']:.4f}); bound {bound[0]:.4f} ms ({bound[1]}) each | "
+                  f"{card_line()}")
+            if cin == ch and dtype == torch.bfloat16:
+                entries["fwd"] = {
+                    "name": "conv1d_forward", "route": "cuda",
+                    "source": "sot_tpu_torch/csrc/conv.cu",
+                    "replaces": "sot_tpu/ops/pallas/conv.py:89", "ms": ms["fwd"],
+                    "device_ms": ms["fwd device"], "plain_ms": ms["fwd plain"],
+                    "bound_ms": bound[0], "bound_by": bound[1], "library_ms": ms["fwd library"]}
+                entries["dw"] = {
+                    "name": "conv1d_weight", "route": "cuda",
+                    "source": "sot_tpu_torch/csrc/conv.cu",
+                    "replaces": "sot_tpu/ops/pallas/conv.py:104", "ms": ms["dw"],
+                    "device_ms": ms["dw device"], "plain_ms": ms["dw plain"],
+                    "bound_ms": bound[0], "bound_by": bound[1], "library_ms": ms["dw library"]}
+    entries["fwd"]["max_abs_err"], entries["dw"]["max_abs_err"] = errs["fwd"], errs["dw"]
+    return [entries["fwd"], entries["dw"]]
+
+
 def reset_launches() -> None:
     kcqt.launches = ksynth.launches = ksynth.backward_launches = 0
     kmerge.launches = krefgrad.launches = kplane.launches = kplane.backward_launches = 0
+    kmerge.grad_launches = kstft.launches = kconv.launches = kconv.dw_launches = 0
 
 
 def read_launches():
     return {"cqt_project": kcqt.launches, "synth_render": ksynth.launches,
             "synth_backward": ksynth.backward_launches, "merge_coupling": kmerge.launches,
             "ref_grad_beta": krefgrad.launches, "sot_plane_forward": kplane.launches,
-            "sot_plane_backward": kplane.backward_launches}
+            "sot_plane_backward": kplane.backward_launches,
+            "coupling_grads": kmerge.grad_launches, "stft_frontend": kstft.launches,
+            "conv1d_forward": kconv.launches, "conv1d_weight": kconv.dw_launches}
 
 
 def timed_steps(mod, state, x_all, offsets):
@@ -1247,7 +1622,7 @@ def train(cfg, dev, x_all, kernels="auto", on=(), window=True):
     base = get_experiment("SOT-2048")
     require(all(getattr(base, f) == getattr(cfg, f) for f in DATA_FIELDS),
             f"{cfg.name} draws another dataset than the one generated")
-    label = f"{cfg.name} kernels={kernels}"
+    label = f"{cfg.name} kernels={kernels if isinstance(kernels, str) else 'gated'}"
     mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
                         kernels=kernels)
     state = trainer.init_state(mod)
@@ -1329,7 +1704,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     set_precision_policy()
 
-    seconds = _build.build(["cqt", "synth", "merge", "refgrad", "plane"])
+    seconds = _build.build(["cqt", "synth", "merge", "refgrad", "plane", "stft", "conv"])
     print(f"[build] nvcc sm_90a, parallel: {json.dumps(seconds)} s")
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
@@ -1361,14 +1736,19 @@ def main() -> int:
     for entry, err in zip(plane_entries, plane_errs):
         entry["max_abs_err"] = err
     kernels += plane_entries
+    kernels += [check_coupling_grads(alpha, beta, gaug, lambda: rows[1:], rng, dev),
+                check_stft_frontend(dev, rng)] + check_conv(dev, rng)
 
     check_train_golden(cfg, dev)
     check_train_golden(cfg512, dev, GOLDEN_512, GOLDEN_512, (GRAD_LIMITS_512, LEAF_COSINE_512),
                        "train-golden-512")
     check_eval_512(cfg512, dev)
+    check_train_golden(cfg, dev, GOLDEN_GATED, GOLDEN, (GRAD_LIMITS_GATED, LEAF_COSINE_GATED),
+                       "train-golden-gated", GATED)
 
     x_all = train_dataset(cfg, dev)
     common = ("cqt_project", "synth_render", "synth_backward")
+    gated = ("coupling_grads", "stft_frontend", "conv1d_forward", "conv1d_weight")
     runs = {
         "SOT-2048 auto": train(cfg, dev, x_all, on=common + ("merge_coupling", "ref_grad_beta")),
         "SOT-512 auto": train(cfg512, dev, x_all,
@@ -1377,9 +1757,14 @@ def main() -> int:
                                    on=common + ("merge_coupling", "sot_plane_backward")),
         "SOT-2048 default": train(cfg, dev, x_all, kernels="default", window=False,
                                   on=common + ("sot_plane_forward", "sot_plane_backward")),
+        "SOT-2048 gated": train(cfg, dev, x_all, kernels=GATED,
+                                on=common + ("merge_coupling",) + gated),
+        "SOT-512 gated": train(cfg512, dev, x_all, kernels=GATED, window=False,
+                               on=common + ("merge_coupling",) + gated),
     }
     # each kernel's count from the run whose main path it is on
-    main_path = {"sot_plane_forward": "SOT-2048 default", "sot_plane_backward": "SOT-512 auto"}
+    main_path = {"sot_plane_forward": "SOT-2048 default", "sot_plane_backward": "SOT-512 auto",
+                 **{k: "SOT-2048 gated" for k in gated}}
     print(f"[serving] launches during the serving requests: {serving_launches}")
     for k in kernels:
         run = main_path.get(k["name"], "SOT-2048 auto")

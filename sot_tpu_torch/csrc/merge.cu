@@ -96,6 +96,106 @@ coupling_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (tid == 0) out[row] = (float)total;
 }
 
+// ---------------------------------------------------------------------------
+// Coupling gradient (kernel B8). Replaces the TPU kernel
+// sot_tpu/ops/pallas/merge.py:_grad_kernel (entry _coupling_grads_pallas).
+//
+//   dS/db_l = x_l * (sum_k x_k [a_k > b_l] + 1/2 sum_k x_k [a_k == b_l])
+//   dS/da_k = x_k * (sum_l x_l [b_l > a_k] + 1/2 sum_l x_l [b_l == a_k])
+//
+// the min-halving subgradient (autograd of torch.minimum splits a tie 1/2,
+// 1/2), which the TPU kernel realises as the mean of two bitonic merges with
+// opposite tie directions and two stream compactions per side. Here a and b
+// are each sorted already, so no merge is needed: with the float64 prefix
+// sums PX[p] = sum_{k < p} x_k, a query v into the nonincreasing row s gives
+// the strict and the tie-inclusive weights PX[#{s > v}] and PX[#{s >= v}] by
+// two binary searches, and the result x * (strict + inclusive) / 2 is
+// rounded once to f32. A row that is not nonincreasing is scanned whole
+// (O(m^2), the same sums in the dense oracle's form); the rows of real SOT
+// losses are sorted. Deterministic, no atomics.
+//
+// Bound on the H100: bytes. At SOT-2048's shape (1024 x 1025, db only) it
+// reads a, b (8.4 MB) and writes db (4.2 MB): ~3.8 us; the work is two binary
+// searches of 11 steps per element.
+
+// #{k : s_k > v} (strict) or #{k : s_k >= v} for nonincreasing s
+template <bool INCLUSIVE>
+__device__ __forceinline__ int count_above(const float* s, int m, float v) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool above = INCLUSIVE ? (s[mid] >= v) : (s[mid] > v);
+    if (above) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// out_l = x_l * (PX[#{s > q_l}] + PX[#{s >= q_l}]) / 2 for every column l of
+// one row; `full` scans s whole instead (s not sorted).
+__device__ void side_grad(const float* s, const float* q, const float* __restrict__ x,
+                          const double* px, float* __restrict__ out, int m, bool full) {
+  for (int l = threadIdx.x; l < m; l += NT) {
+    const float v = q[l];
+    double strict, incl;
+    if (full) {
+      strict = 0.0;
+      incl = 0.0;
+      for (int k = 0; k < m; ++k) {
+        const double xk = (double)x[k];
+        if (s[k] > v) strict += xk;
+        if (s[k] >= v) incl += xk;
+      }
+    } else {
+      strict = px[count_above<false>(s, m, v)];
+      incl = px[count_above<true>(s, m, v)];
+    }
+    out[l] = (float)((double)x[l] * (0.5 * (strict + incl)));
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+coupling_grad_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     const float* __restrict__ x, float* __restrict__ da,
+                     float* __restrict__ db, int m) {
+  extern __shared__ double smem[];
+  double* px = smem;                                      // [m + 1]
+  float* as = reinterpret_cast<float*>(px + (m + 1));     // [m]
+  float* bs = as + m;                                     // [m]
+  __shared__ double warp_buf[NWARPS];
+
+  const int tid = threadIdx.x;
+  const size_t base = (size_t)blockIdx.x * m;
+  for (int l = tid; l < m; l += NT) {
+    as[l] = a[base + l];
+    bs[l] = b[base + l];
+  }
+  // each thread owns one contiguous chunk of columns of the x prefix
+  const int chunk = (m + NT - 1) / NT;
+  const int lo = min(tid * chunk, m);
+  const int hi = min(lo + chunk, m);
+  double sx = 0.0;
+  for (int l = lo; l < hi; ++l) sx += (double)x[l];
+  double total;
+  double run = block_excl_scan<NT>(sx, warp_buf, &total);
+  for (int l = lo; l < hi; ++l) {
+    px[l] = run;
+    run += (double)x[l];
+  }
+  if (tid == 0) px[m] = total;
+  __syncthreads();
+
+  int ua = 0, ub = 0;
+  for (int l = tid + 1; l < m; l += NT) {
+    ua |= !(as[l] <= as[l - 1]);
+    ub |= !(bs[l] <= bs[l - 1]);
+  }
+  const bool a_unsorted = __syncthreads_or(ua) != 0;
+  const bool b_unsorted = __syncthreads_or(ub) != 0;
+
+  side_grad(as, bs, x, px, db + base, m, a_unsorted);
+  if (da != nullptr) side_grad(bs, as, x, px, da + base, m, b_unsorted);
+}
+
 }  // namespace
 
 // a, b [rows, m] f32 contiguous, nonincreasing rows >= 0; x [m] f32 >= 0;
@@ -110,5 +210,21 @@ extern "C" int coupling_forward_f32(const float* a, const float* b, const float*
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   coupling_fwd_kernel<<<rows, NT, shmem, static_cast<cudaStream_t>(stream)>>>(a, b, x, out, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, b [rows, m] f32 contiguous; x [m] f32 >= 0; db [rows, m] f32 and da
+// [rows, m] f32 or null (no alpha gradients). Requires 1 <= m <= 8192.
+// Returns cudaGetLastError() of the launch.
+extern "C" int coupling_grads_f32(const float* a, const float* b, const float* x, float* da,
+                                  float* db, int rows, int m, void* stream) {
+  const size_t shmem = (size_t)(m + 1) * sizeof(double) + 2 * (size_t)m * sizeof(float);
+  if (shmem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        coupling_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  coupling_grad_kernel<<<rows, NT, shmem, static_cast<cudaStream_t>(stream)>>>(a, b, x, da, db,
+                                                                              m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sot_tpu_torch.kernel_gates import Kernels, resolve_gates
 from sot_tpu_torch.ops.cqt import cqt_frequencies, cqt_magnitude
 from sot_tpu_torch.ops.numerics import safe_log
 from sot_tpu_torch.ops.stft import rfft_frequencies, stft_magnitude
@@ -23,18 +24,22 @@ from sot_tpu_torch.ops.stft import rfft_frequencies, stft_magnitude
 
 @dataclasses.dataclass(frozen=True)
 class STFT:
-    """Magnitude STFT, time-major."""
+    """Magnitude STFT, time-major. ``kernels`` (a ``KernelGates`` or a
+    preset name): its ``stft_frontend`` gate sends the transform to kernel
+    B9 where the JAX package's conditions hold."""
 
     n_fft: int = 1024
     hop_length: int = 256
     sample_rate: int = 16000
     window: Optional[str] = None  # None -> hann; 'flattop' for the SOT loss domain
     log: bool = False
+    kernels: Kernels = "auto"
 
     def __call__(self, audio: torch.Tensor, reduce: bool = False,
                  log: bool = False) -> torch.Tensor:
         x = stft_magnitude(audio, size=self.n_fft,
-                           overlap=1.0 - self.hop_length / self.n_fft, window=self.window)
+                           overlap=1.0 - self.hop_length / self.n_fft, window=self.window,
+                           frontend=resolve_gates(self.kernels).stft_frontend)
         if reduce:
             x = torch.mean(x, dim=1)
         if log or self.log:

@@ -21,6 +21,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sot_tpu_torch.kernel_gates import Kernels, resolve_gates
 from sot_tpu_torch.ops.numerics import safe_divide, safe_log
 from sot_tpu_torch.ops.stft import stft_magnitude
 from sot_tpu_torch.ops.wasserstein import wasserstein_1d, wasserstein_1d_same_grid
@@ -58,8 +59,9 @@ class Wasserstein1D:
     square_dist: bool = False
     # x (the target spectrum) is data with no gradient (training sets this)
     target_constant: bool = False
-    # the same-grid W_2 route's gates: "auto" or "default" (ops/wasserstein.w2_route)
-    kernels: str = "auto"
+    # the same-grid W_2 route's gates: a KernelGates or a preset name
+    # ("auto", "default"; ops/wasserstein.w2_route)
+    kernels: Kernels = "auto"
 
     name = "Wasserstein1D"
 
@@ -128,20 +130,24 @@ class Wasserstein1D:
 
 @dataclasses.dataclass(frozen=True)
 class MSSLoss:
-    """Multi-scale spectrogram loss, DDSP-style."""
+    """Multi-scale spectrogram loss, DDSP-style. ``kernels``: the
+    ``stft_frontend`` gate sends the scales whose hop is a multiple of 128
+    to kernel B9."""
 
     fft_sizes: Tuple[int, ...] = (2048, 1024, 512, 256, 128, 64)
     loss_type: str = "L1"
     mag_weight: float = 0.0
     logmag_weight: float = 0.0
+    kernels: Kernels = "auto"
 
     name = "MSSLoss"
 
     def __call__(self, target_audio: torch.Tensor, audio: torch.Tensor, **_kw) -> torch.Tensor:
+        frontend = resolve_gates(self.kernels).stft_frontend
         loss = 0.0
         for size in self.fft_sizes:
-            target_mag = stft_magnitude(target_audio, size=size, overlap=0.75)
-            value_mag = stft_magnitude(audio, size=size, overlap=0.75)
+            target_mag = stft_magnitude(target_audio, size=size, overlap=0.75, frontend=frontend)
+            value_mag = stft_magnitude(audio, size=size, overlap=0.75, frontend=frontend)
             if self.mag_weight > 0:
                 loss = loss + self.mag_weight * mean_difference(
                     target_mag, value_mag, self.loss_type)

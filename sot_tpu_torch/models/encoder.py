@@ -10,7 +10,12 @@
   * 'frequency' logits (Toeplitz), 'weights' (n_modes harmonic amplitudes via
     exp-sigmoid, dense), optional 'gain'
 
-Convolutions run in PyTorch's NCW layout. Parameters use PyTorch's default
+Convolutions run in PyTorch's NCW layout. With ``conv_dtype`` (the
+``conv`` kernel gate, ``SOT_TPU_CONV_PALLAS`` in the JAX package) the
+k > 1 'same' convolutions (``conv1``, ``prefilt*``) run on the hand-written
+kernels B10/B11 with operands rounded to that type (``KernelConv1d``,
+whose parameters and state-dict keys are those of ``nn.Conv1d``).
+Parameters use PyTorch's default
 initialisation (U(+-1/sqrt(fan_in))), drawn from an optional explicit
 ``torch.Generator``. ~46K parameters in the paper configuration. Dropout
 draws its masks from the generator set on ``encoder.dropout.generator``
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sot_tpu_torch.ops.kernels.conv import conv1d_same
 from sot_tpu_torch.ops.numerics import exp_sigmoid
 
 
@@ -53,6 +59,23 @@ class GeneratorDropout(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+class KernelConv1d(nn.Conv1d):
+    """An ``nn.Conv1d`` with odd kernel size and 'same' padding whose
+    forward is the hand-written conv (``ops/kernels/conv.conv1d_same``,
+    kernels B10/B11) with operands rounded to ``compute_dtype``; the bias is
+    added after it in f32, as the JAX package's ``_PallasConvInner`` adds
+    it. Parameters, initialisation and state-dict keys are the base
+    class's."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1d_same(x, self.weight, self.compute_dtype) + self.bias[:, None]
+
+
 class ToeplitzLinear(nn.Module):
     """y[b, j] = sum_i x[b, i] * w[i - j + out - 1]."""
 
@@ -76,7 +99,8 @@ class PESTOEncoder(nn.Module):
     """1D CNN over a single CQT frame -> dict of head outputs.
 
     Input is [batch, n_bins_in] (a flattened (batch*time) of single-channel
-    frames).
+    frames). ``conv_dtype``: None for PyTorch's convolutions, else the
+    operand type of the hand-written kernels for the k > 1 convs.
     """
 
     def __init__(
@@ -93,6 +117,7 @@ class PESTOEncoder(nn.Module):
         a_lrelu: float = 0.3,
         p_dropout: float = 0.5,
         generator: Optional[torch.Generator] = None,
+        conv_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.n_bins_in = n_bins_in
@@ -108,10 +133,14 @@ class PESTOEncoder(nn.Module):
         pad = (kernel_size - 1) // 2
 
         self.layernorm = nn.LayerNorm([1, n_bins_in], eps=1e-5)
-        self.conv1 = nn.Conv1d(1, ch[0], kernel_size, padding=pad)
-        self.prefilt = nn.ModuleList(
-            nn.Conv1d(ch[0], ch[0], kernel_size, padding=pad)
-            for _ in range(n_prefilt_layers - 1))
+        if conv_dtype is None or kernel_size <= 1:
+            def wide(cin, cout):
+                return nn.Conv1d(cin, cout, kernel_size, padding=pad)
+        else:
+            def wide(cin, cout):
+                return KernelConv1d(cin, cout, kernel_size, conv_dtype)
+        self.conv1 = wide(1, ch[0])
+        self.prefilt = nn.ModuleList(wide(ch[0], ch[0]) for _ in range(n_prefilt_layers - 1))
         self.conv2 = nn.Conv1d(ch[0], ch[1], 1)
         self.conv3 = nn.Conv1d(ch[1], ch[2], 1)
         self.conv4a = nn.Conv1d(ch[2], ch[3], 1)

@@ -1,7 +1,10 @@
-"""SOT W2 coupling forward: hand-written CUDA kernel and its plain version.
+"""SOT W2 coupling and its gradient: hand-written CUDA kernels and their
+plain versions.
 
-Replaces the TPU kernel ``sot_tpu/ops/pallas/merge.py:_fwd_kernel`` (entry
-``_coupling_fwd_pallas``). The CUDA source is ``sot_tpu_torch/csrc/merge.cu``.
+Replaces the TPU kernels ``sot_tpu/ops/pallas/merge.py:_fwd_kernel`` (entry
+``_coupling_fwd_pallas``; kernel B4) and ``_grad_kernel`` (entry
+``_coupling_grads_pallas``; kernel B8). The CUDA source is
+``sot_tpu_torch/csrc/merge.cu``.
 
     S[r] = sum_{k,l} x_k x_l min(a[r,k], b[r,l])
 
@@ -11,30 +14,40 @@ marginal and linear terms around it to give W_2^2 per row (the same
 quantity as ``sot_tpu/ops/pallas/merge.py:sot_w2_merge``, without the
 shaved-column boundary terms: the kernel covers every column).
 
-Bound on the H100: bytes (8.4 MB read at [1024, 1025], ~2.5 us). One block
-per row, binary searches into the row's b with float64 prefix and suffix
-sums in shared memory; see the source for the design notes.
+``coupling_grads`` gives dS/da and dS/db in the min-halving convention
+(autograd of ``torch.minimum``: a tie a_k == b_l splits 1/2, 1/2), which
+is the ``full`` route's and differs from the plane convention of the other
+three routes at the cap-tie kinks by design (PERF.md, "The
+gradient-convention lesson").
 
-On a CPU tensor ``coupling`` runs ``coupling_plain``; on a CUDA tensor it
-launches the kernel or raises. The value is convention-free, so the
-function has no gradient of its own: the training loss wraps it in an
-``autograd.Function`` whose backward is the refgrad kernel
+Bounds on the H100: bytes (the forward reads 8.4 MB at [1024, 1025],
+~2.5 us; the gradient also writes db, ~3.8 us). One block per row, binary
+searches with float64 prefix sums in shared memory; see the source.
+
+On a CPU tensor ``coupling`` and ``coupling_grads`` run their plain
+versions; on a CUDA tensor they launch the kernel or raise. Neither has an
+autograd of its own: the training loss wraps them in ``autograd.Function``s
 (``ops/wasserstein.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from sot_tpu_torch.ops.kernels import _build
 from sot_tpu_torch.ops.scan import prefix_sum
 
-# Launches of the CUDA kernel (plain-version calls are not counted).
-launches = 0
+# Launches of the CUDA kernels (plain-version calls are not counted).
+launches = 0        # the coupling value, kernel B4
+grad_launches = 0   # the coupling gradient, kernel B8
 
 _MAX_COLS = 8192
+# cells of one dense chunk of the gradient's full scan (rows that are not sorted)
+_CHUNK_CELLS = 1 << 22
 
 
 def coupling_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -53,26 +66,66 @@ def coupling_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.T
     return torch.sum(X * Y * widths, dim=-1)
 
 
+def _side_grad_plain(s: torch.Tensor, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x_l (sum_k x_k [s_k > q_l] + sum_k x_k [s_k >= q_l]) / 2 per row, in
+    float64 and rounded once: rank queries into the nonincreasing rows of
+    s, and a dense scan for rows that are not sorted."""
+    x64 = x.to(torch.float64)
+    px = F.pad(torch.cumsum(x64, 0), (1, 0))  # px[p] = sum_{k < p} x_k
+    neg_s, neg_q = (-s).contiguous(), (-q).contiguous()  # ascending rows
+    strict = px[torch.searchsorted(neg_s, neg_q, right=False)]  # #{s > q}
+    incl = px[torch.searchsorted(neg_s, neg_q, right=True)]     # #{s >= q}
+    unsorted = torch.nonzero((s[:, 1:] > s[:, :-1]).any(-1)).flatten().tolist()
+    m = s.shape[1]
+    step = max(1, _CHUNK_CELLS // (m * m))
+    for lo in range(0, len(unsorted), step):
+        rows = unsorted[lo:lo + step]
+        ss, qq = s[rows][:, None, :], q[rows][:, :, None]
+        strict[rows] = torch.sum(torch.where(ss > qq, x64, 0.0), dim=-1)
+        incl[rows] = torch.sum(torch.where(ss >= qq, x64, 0.0), dim=-1)
+    return (x64 * (0.5 * (strict + incl))).to(torch.float32)
+
+
+def coupling_grads_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                         alpha_grads: bool = True
+                         ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(dS/da or None, dS/db) [rows, m] in the min-halving convention:
+
+        dS/db_l = x_l (sum_k x_k [a_k > b_l] + 1/2 sum_k x_k [a_k == b_l])
+
+    and the mirror for a; dS/da only with ``alpha_grads``."""
+    db = _side_grad_plain(a, b, x)
+    return (_side_grad_plain(b, a, x) if alpha_grads else None), db
+
+
 def _bind() -> ctypes.CDLL:
     lib = _build.load("merge")
     fn = lib.coupling_forward_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    grad = lib.coupling_grads_f32
+    grad.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    grad.restype = ctypes.c_int
     return lib
+
+
+def _check(what: str, a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> None:
+    if a.device.type != "cuda" or b.device != a.device or x.device != a.device:
+        raise ValueError(f"{what}: tensors on {a.device} / {b.device} / {x.device}")
+    if not all(t.dtype == torch.float32 for t in (a, b, x)):
+        raise TypeError(f"{what}: the CUDA kernel takes float32 inputs")
+    rows, m = a.shape
+    if b.shape != a.shape or x.shape != (m,) or not 1 <= m <= _MAX_COLS:
+        raise ValueError(f"{what}: a, b [rows, m <= {_MAX_COLS}] and x [m]; got "
+                         f"{tuple(a.shape)} / {tuple(b.shape)} / {tuple(x.shape)}")
 
 
 def coupling(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """[rows, m] complements a, b and [m] deltas x -> S [rows] (no autograd)."""
     if a.device.type == "cpu":
         return coupling_plain(a, b, x)
-    if a.device.type != "cuda" or b.device != a.device or x.device != a.device:
-        raise ValueError(f"coupling: tensors on {a.device} / {b.device} / {x.device}")
-    if not all(t.dtype == torch.float32 for t in (a, b, x)):
-        raise TypeError("coupling: the CUDA kernel takes float32 inputs")
+    _check("coupling", a, b, x)
     rows, m = a.shape
-    if b.shape != a.shape or x.shape != (m,) or not 1 <= m <= _MAX_COLS:
-        raise ValueError(f"coupling: a, b [rows, m <= {_MAX_COLS}] and x [m]; got "
-                         f"{tuple(a.shape)} / {tuple(b.shape)} / {tuple(x.shape)}")
     a, b, x = a.contiguous(), b.contiguous(), x.contiguous()
     out = torch.empty((rows,), dtype=torch.float32, device=a.device)
     err = _bind().coupling_forward_f32(a.data_ptr(), b.data_ptr(), x.data_ptr(),
@@ -84,7 +137,37 @@ def coupling(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sot_w2_merge(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def coupling_grads(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                   alpha_grads: bool = True
+                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(dS/da or None, dS/db) [rows, m] of S = sum x_k x_l min(a_k, b_l),
+    min-halving at ties (``coupling_grads_plain``; no autograd)."""
+    if a.device.type == "cpu":
+        return coupling_grads_plain(a, b, x, alpha_grads)
+    _check("coupling_grads", a, b, x)
+    rows, m = a.shape
+    a, b, x = a.contiguous(), b.contiguous(), x.contiguous()
+    db = torch.empty_like(b)
+    da = torch.empty_like(a) if alpha_grads else None
+    err = _bind().coupling_grads_f32(a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                     None if da is None else da.data_ptr(), db.data_ptr(),
+                                     rows, m, torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "coupling_grads_f32")
+    global grad_launches
+    grad_launches += 1
+    return da, db
+
+
+CouplingFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _coupling_of_bodies(alpha_body: torch.Tensor, beta_body: torch.Tensor, cap: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    return coupling(cap[:, None] - alpha_body, cap[:, None] - beta_body, x)
+
+
+def sot_w2_merge(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor,
+                 coupling_fn: CouplingFn = _coupling_of_bodies) -> torch.Tensor:
     """W_2^2 rows on a shared grid from the clipped augmented CDFs alpha,
     beta [rows, n_aug] and the augmented grid g [n_aug]:
 
@@ -92,6 +175,8 @@ def sot_w2_merge(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor) -> to
 
     marg = sum_i (alpha_i - alpha_{i-1}) g_i^2 + the same for beta. The
     cancellation in W is why tolerances on it are stated relative to marg.
+    ``coupling_fn(alpha_body, beta_body, cap, x)`` gives S (default: kernel
+    B4, no autograd; the ``full`` route passes a differentiable one).
     """
     gamma = torch.nn.functional.pad(alpha, (1, 0))[:, :-1]
     delta = torch.nn.functional.pad(beta, (1, 0))[:, :-1]
@@ -101,6 +186,6 @@ def sot_w2_merge(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor) -> to
     x = g[1:] - g[:-1]
     a = cap[:, None] - alpha[:, :-1]
     b = cap[:, None] - beta[:, :-1]
-    S = coupling(a, b, x)
+    S = coupling_fn(alpha[:, :-1], beta[:, :-1], cap, x)
     cross = (g[0] * g[0]) * cap + g[0] * (a @ x + b @ x) + S
     return marg - 2.0 * cross

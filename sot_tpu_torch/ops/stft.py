@@ -8,7 +8,10 @@
   * magnitude = |rfft| with a zero-safe gradient (``_complex_abs``)
 
 Framing is ``Tensor.unfold``; its autograd is the overlap-add the JAX
-package writes out as a custom VJP (the same sums). ``center=True`` is the
+package writes out as a custom VJP (the same sums). With ``frontend`` (the
+``stft_frontend`` gate, ``SOT_TPU_STFT_PALLAS`` in the JAX package) the
+framing, window and DFT run fused in kernel B9 (``ops/kernels/stft.py``)
+wherever the JAX package's conditions hold. ``center=True`` is the
 loudness path, which is not ported yet: it raises. Output is time-major
 [batch, frames, n_fft // 2 + 1].
 """
@@ -20,6 +23,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from sot_tpu_torch.ops.kernels.stft import frontend_applicable, stft_frontend_projection
 from sot_tpu_torch.ops.numerics import pad_for_stft_length
 from sot_tpu_torch.ops.windows import get_window, hann_window
 
@@ -73,11 +77,14 @@ def stft_magnitude(
     normalized: bool = True,
     time_major: bool = True,
     center: bool = False,
+    frontend: bool = False,
 ) -> torch.Tensor:
     """Magnitude STFT of [batch, T] audio -> [batch, frames, size//2+1].
 
     Hann window by default, a scipy window by name ('flattop'), 'ones' for
-    rectangular, or an explicit array.
+    rectangular, or an explicit array. ``frontend`` sends [batch, T] audio
+    with a numpy window to kernel B9 where ``frontend_applicable`` holds
+    (``sot_tpu/ops/stft.py:206-222``).
     """
     if center:
         raise NotImplementedError(
@@ -94,10 +101,16 @@ def stft_magnitude(
         win = np.ones(size, np.float32) if window == "ones" else get_window(window, size)
     else:
         win = window
-    win = torch.as_tensor(win, dtype=torch.float32, device=audio.device)
-    frames = frame_signal(audio, size, hop_length, pad_end=pad_end)
-    spec = torch.fft.rfft(frames * win, dim=-1)
-    mag = _complex_abs(spec.real, spec.imag)
+    if (frontend and audio.ndim == 2 and isinstance(win, np.ndarray)
+            and frontend_applicable(size, hop_length, audio.shape[-1], pad_end, center)):
+        proj = stft_frontend_projection(audio, size, hop_length, win)
+        n_bins = size // 2 + 1
+        mag = _complex_abs(proj[..., :n_bins], proj[..., n_bins:])
+    else:
+        win = torch.as_tensor(win, dtype=torch.float32, device=audio.device)
+        frames = frame_signal(audio, size, hop_length, pad_end=pad_end)
+        spec = torch.fft.rfft(frames * win, dim=-1)
+        mag = _complex_abs(spec.real, spec.imag)
     if normalized:
         mag = mag / float(np.float32(np.sqrt(size)))
     if not time_major:

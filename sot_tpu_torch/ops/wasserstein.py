@@ -7,17 +7,20 @@ wasserstein.py`` and the same-grid entry of ``sot_tpu/ops/pallas/sot.py``).
     values, as in the reference
   * ``wasserstein_same_grid`` — both spectra on one shared sorted grid (the
     training hot path): CDFs, the quantile cap, the augmented tail lane,
-    then the p = 1 closed form, or one of three routes (``w2_route``), each
+    then the p = 1 closed form, or one of four routes (``w2_route``), each
     an ``autograd.Function`` around hand-written kernels:
 
       ``ref``    merge-coupling value (kernel B4) + reference-convention
                  beta gradient (kernel B5); a constant target only
       ``hybrid`` merge-coupling value (B4) + banded-plane backward (B7)
       ``plane``  banded-plane value (B6) + banded-plane backward (B7)
+      ``full``   merge-coupling value (B4) + its min-halving gradient (B8)
 
-    All three give the plane kernel's gradient convention. p other than 1
-    and 2 always takes ``plane``; ``ref`` with a target that needs a
-    gradient becomes ``hybrid`` (``sot.py:676-724``).
+    The first three give the plane kernel's gradient convention; ``full``
+    gives the min-halving one (``sot_tpu/ops/pallas/merge.py:_coupling``),
+    which differs at the cap-tie kinks by design. p other than 1 and 2
+    always takes ``plane``; ``ref`` with a target that needs a gradient
+    becomes ``hybrid`` (``sot.py:676-724``).
 """
 
 from __future__ import annotations
@@ -27,30 +30,33 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from sot_tpu_torch.ops.kernels.merge import sot_w2_merge
+from sot_tpu_torch.kernel_gates import Kernels, resolve_gates
+from sot_tpu_torch.ops.kernels.merge import coupling, coupling_grads, sot_w2_merge
 from sot_tpu_torch.ops.kernels.plane import sot_plane_backward, sot_plane_forward
 from sot_tpu_torch.ops.kernels.refgrad import ref_grad_beta
 from sot_tpu_torch.ops.scan import prefix_sum
 
-# The largest bin count (before the tail lane) that the ``auto`` routes send
-# to ``hybrid`` (``SOT_TPU_W2_SMALL_N``'s default).
+# The largest bin count (before the tail lane) that ``w2_merge_small``
+# overrides (``SOT_TPU_W2_SMALL_N``'s default).
 SMALL_N = 512
 
 
-def w2_route(n_bins: int, kernels: str = "auto") -> str:
-    """The same-grid W_2 route for rows of ``n_bins`` bins, as the JAX
-    package's committed gates choose it (``sot.py:_merge_mode``).
+def w2_route(n_bins: int, kernels: Kernels = "auto") -> str:
+    """The same-grid W_2 route for rows of ``n_bins`` bins under the gates
+    ``kernels`` (a ``KernelGates`` or a preset name), as the JAX package's
+    ``sot.py:_merge_mode`` chooses it: ``w2_merge_small`` at or below
+    ``SMALL_N`` bins when it is set, else ``w2_merge``; ``off`` is the
+    banded plane (``plane``).
 
-    ``auto`` (``cli train --kernels auto``): ``ref`` above ``SMALL_N`` bins
-    (``SOT_TPU_W2_MERGE=ref``), ``hybrid`` at or below
-    (``SOT_TPU_W2_MERGE_SMALL=hybrid``, ``kernel_gates.py:124-149``).
-    ``default`` (no gate set): ``plane``. The committed outcome is written
-    here because the A/Bs behind it were measured on a TPU."""
-    if kernels == "auto":
-        return "hybrid" if n_bins <= SMALL_N else "ref"
-    if kernels == "default":
-        return "plane"
-    raise ValueError(f"kernels must be 'auto' or 'default', got {kernels!r}")
+    ``auto`` (``cli train --kernels auto``) gives ``ref`` above ``SMALL_N``
+    bins and ``hybrid`` at or below (``kernel_gates.py:124-149``); the
+    committed outcome is written out because the A/Bs behind it were
+    measured on a TPU. ``default`` (no gate set) gives ``plane``."""
+    gates = resolve_gates(kernels)
+    mode = gates.w2_merge
+    if n_bins <= SMALL_N and gates.w2_merge_small:
+        mode = gates.w2_merge_small
+    return "plane" if mode == "off" else mode
 
 
 class _W2MergeRef(torch.autograd.Function):
@@ -103,6 +109,48 @@ class _SotPlane(torch.autograd.Function):
         return da, db, None, None, None
 
 
+class _W2MergeFull(torch.autograd.Function):
+    """S = sum_kl x_k x_l min(cap - alpha_body_k, cap - beta_body_l) per row
+    (``sot_tpu/ops/pallas/merge.py:_coupling``): the value from kernel B4,
+    the cotangents from kernel B8 in the min-halving convention.
+
+    It takes the bodies and the cap apart, as JAX's ``_coupling`` does, so
+    that the cap lane's cotangent is wbar (sum x)^2 whatever
+    ``alpha_grads`` is: without alpha gradients, autograd of a = cap -
+    alpha_body would give the cap only the b half. x is a grid quantity
+    (no cotangent). JAX shaves the last column (x[-1] == 0, since the
+    augmented grid repeats its last point) and adds O(n) boundary terms;
+    this covers all columns, where that column's x = 0 adds nothing to any
+    sum: the two agree."""
+
+    @staticmethod
+    def forward(ctx, alpha_body, beta_body, cap, x, alpha_grads):
+        ctx.save_for_backward(alpha_body, beta_body, cap, x)
+        ctx.alpha_grads = alpha_grads
+        return coupling(cap[:, None] - alpha_body, cap[:, None] - beta_body, x)
+
+    @staticmethod
+    def backward(ctx, wbar):
+        alpha_body, beta_body, cap, x = ctx.saved_tensors
+        da, db = coupling_grads(cap[:, None] - alpha_body, cap[:, None] - beta_body, x,
+                                ctx.alpha_grads)
+        xsum = torch.sum(x)
+        dcap = wbar * (xsum * xsum)
+        w = wbar[:, None]
+        return (None if da is None else -w * da), -w * db, dcap, None, None
+
+
+def sot_w2_merge_full(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor,
+                      target_constant: bool = False) -> torch.Tensor:
+    """W_2^2 rows through the ``full`` route (``merge.py:sot_w2_merge``):
+    the marginal and linear terms by autograd, the coupling by
+    ``_W2MergeFull``; the alpha body gets no cotangent under
+    ``target_constant`` (the cap lane keeps its own)."""
+    alpha_grads = not target_constant
+    return sot_w2_merge(alpha, beta, g, lambda al, be, cap, x: _W2MergeFull.apply(
+        al, be, cap, x, alpha_grads))
+
+
 def sot_bilinear(alpha: torch.Tensor, beta: torch.Tensor, g: torch.Tensor, p: float = 2.0,
                  target_constant: bool = False) -> torch.Tensor:
     """sum_ij relu(min(a_i, b_j) - max(a_{i-1}, b_{j-1})) |g_i - g_j|^p per
@@ -140,11 +188,12 @@ def wasserstein_same_grid(grid: torch.Tensor, u_weights: torch.Tensor,
                           v_weights: torch.Tensor, p: float = 2.0,
                           limit_quantile_range: bool = False,
                           target_constant: bool = False,
-                          kernels: str = "auto") -> torch.Tensor:
+                          kernels: Kernels = "auto") -> torch.Tensor:
     """W_p^p between weight rows [rows, n] on one shared sorted grid [n] ->
     [rows]. ``limit_quantile_range`` integrates quantile levels up to the
-    largest CDF value <= 1 (the paper's frequency cutoff); ``kernels``
-    chooses the p = 2 route (``w2_route``)."""
+    largest CDF value <= 1 (the paper's frequency cutoff); ``kernels`` (a
+    ``KernelGates`` or a preset name) chooses the p = 2 route
+    (``w2_route``)."""
     if p < 1:
         raise ValueError(f"The OT loss is only valid for p>=1, {p} was given")
     if target_constant:
@@ -157,6 +206,8 @@ def wasserstein_same_grid(grid: torch.Tensor, u_weights: torch.Tensor,
         return torch.sum(torch.abs(alpha[:, :-1] - beta[:, :-1]) * dg[None, :], dim=-1)
     if p != 2.0:
         route = "plane"
+    if route == "full":
+        return sot_w2_merge_full(alpha, beta, gaug, target_constant)
     if route == "ref":
         if target_constant:
             return _W2MergeRef.apply(alpha, beta, gaug)
@@ -224,7 +275,7 @@ def wasserstein_1d_same_grid(grid: torch.Tensor, u_weights: torch.Tensor,
                              v_weights: torch.Tensor, p: float = 1,
                              limit_quantile_range: bool = False,
                              target_constant: bool = False,
-                             kernels: str = "auto") -> torch.Tensor:
+                             kernels: Kernels = "auto") -> torch.Tensor:
     """``wasserstein_1d(grid, grid, u, v)`` for one shared sorted grid."""
     if grid.ndim != 1:
         grid = grid[0]

@@ -18,9 +18,11 @@
   * ``predict`` — the deployment inference entry
 
 Parameters live in ``mod.encoder``; the optimizer, scheduler, dropout
-generator and step count in ``TrainState``. ``mod.kernels`` ("auto" or
-"default", ``ops/wasserstein.w2_route``) picks the SOT loss's kernel route,
-as ``cli train --kernels`` does in the JAX package. ``train()`` with its
+generator and step count in ``TrainState``. ``mod.kernels`` (a
+``KernelGates``, ``kernel_gates.py``) holds the kernel gates that ``cli
+train --kernels`` and the env gates set in the JAX package: the SOT loss's
+route (``ops/wasserstein.w2_route``), the encoder's conv kernels and the
+STFT frontend. ``train()`` with its
 periodic evaluation, and checkpoints, come with a later slice (ROADMAP).
 """
 
@@ -39,6 +41,7 @@ from sot_tpu_torch import metrics as metrics_lib
 from sot_tpu_torch.configs import ExperimentConfig
 from sot_tpu_torch.device import DeviceLike, resolve_device
 from sot_tpu_torch.features import CQT, STFT, Identity
+from sot_tpu_torch.kernel_gates import KernelGates, Kernels, resolve_gates
 from sot_tpu_torch.models.encoder import PESTOEncoder, predict_pitch
 from sot_tpu_torch.models.synths import Sinusoidal
 from sot_tpu_torch.ops.numerics import get_cqt_n_bins, hz_to_unit, unit_to_hz
@@ -56,17 +59,20 @@ class Modules:
     freq_hz_min: float
     freq_hz_max: float
     device: torch.device
-    kernels: str  # the SOT loss's kernel route: "auto" or "default"
+    kernels: KernelGates  # the kernel gates (resolved from a preset name)
     evaluation_metrics: Dict[str, bool]
 
 
 def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
                   generator: Optional[torch.Generator] = None,
-                  kernels: str = "auto") -> Modules:
+                  kernels: Kernels = "auto") -> Modules:
     """Build the model for ``cfg`` on ``device`` (default: the GPU; raises
     if there is none). ``generator`` seeds the encoder's initialisation;
-    ``kernels`` picks the SOT loss's kernel route (``w2_route``)."""
+    ``kernels`` (a ``KernelGates`` or a preset name) sets the kernel gates:
+    the SOT loss's route (``w2_route``), the encoder's conv kernels, the
+    STFT frontend of the loss transform and the MSS loss."""
     device = resolve_device(device)
+    gates = resolve_gates(kernels)
     n_bins = get_cqt_n_bins(cfg.sample_rate, cfg.cqt_fmin, cfg.cqt_bins_per_semitone)
     feature_extractor = CQT(
         sample_rate=cfg.sample_rate, fmin=cfg.cqt_fmin,
@@ -75,7 +81,8 @@ def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
     encoder = PESTOEncoder(
         n_bins_in=n_bins, output_size=n_bins, n_modes=cfg.n_modes,
         output_splits=("frequency", "weights"), harmonic=True,
-        generator=generator).to(device).eval()
+        generator=generator, conv_dtype=gates.conv_dtype if gates.conv else None,
+    ).to(device).eval()
     decoder = Sinusoidal(
         n_samples=cfg.n_samples, sample_rate=cfg.sample_rate,
         amp_scale_fn=None, freq_scale_fn=None, harmonic=True,
@@ -84,7 +91,8 @@ def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
         transform = Identity()
     else:
         transform = STFT(n_fft=cfg.transform_n_fft, hop_length=cfg.transform_hop,
-                         sample_rate=cfg.sample_rate, window=cfg.transform_window)
+                         sample_rate=cfg.sample_rate, window=cfg.transform_window,
+                         kernels=gates)
     feats = feature_extractor.get_frequencies()
     freq_hz_min, freq_hz_max = float(feats[0]), float(feats[-1])
 
@@ -102,12 +110,13 @@ def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
     for lc in cfg.losses:
         if lc.kind == "mss":
             fn = losses_lib.MSSLoss(fft_sizes=lc.fft_sizes, loss_type=lc.loss_type,
-                                    mag_weight=lc.mag_weight, logmag_weight=lc.logmag_weight)
+                                    mag_weight=lc.mag_weight, logmag_weight=lc.logmag_weight,
+                                    kernels=gates)
         elif lc.kind == "wasserstein":
             fn = losses_lib.Wasserstein1D(
                 p=lc.p, square_dist=lc.square_dist, dont_normalize=lc.dont_normalize,
                 limit_quantile_range=lc.limit_quantile_range,
-                log_scaled_x=lc.log_scaled_x, target_constant=True, kernels=kernels)
+                log_scaled_x=lc.log_scaled_x, target_constant=True, kernels=gates)
         else:
             raise ValueError(f"Unknown loss kind {lc.kind}")
         loss_fns.append((lc.kind, fn, lc.weight))
@@ -116,7 +125,7 @@ def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
                    feature_extractor=feature_extractor, transform=transform,
                    loss_fns=tuple(loss_fns), x_pos=x_pos,
                    freq_hz_min=freq_hz_min, freq_hz_max=freq_hz_max, device=device,
-                   kernels=kernels,
+                   kernels=gates,
                    evaluation_metrics={name: True for name in cfg.evaluation_metrics})
 
 

@@ -16,10 +16,12 @@ import torch
 
 import chip_smoke
 from sot_tpu_torch.ops.cqt import cqt_bank
+from sot_tpu_torch.ops.kernels import conv as kconv
 from sot_tpu_torch.ops.kernels import cqt as kcqt
 from sot_tpu_torch.ops.kernels import merge as kmerge
 from sot_tpu_torch.ops.kernels import plane as kplane
 from sot_tpu_torch.ops.kernels import refgrad as krefgrad
+from sot_tpu_torch.ops.kernels import stft as kstft
 from sot_tpu_torch.ops.kernels import synth as ksynth
 from sot_tpu_torch.ops.wasserstein import clipped_cdfs
 
@@ -257,3 +259,81 @@ def test_plane_wrappers_raise_on_non_cuda_devices():
         kplane.sot_plane_forward(a, a, g, 2.0)
     with pytest.raises(ValueError, match="sot_plane_backward"):
         kplane.sot_plane_backward(a, a, g, 2.0, torch.empty((4,), device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["dyadic", "random", "unsorted"])
+def test_coupling_grads_kernel_matches_plain_on_card(rows):
+    """Kernel 8, alpha_grads both ways: bit for bit on dyadic tie rows, within
+    chip_smoke's COUPLING_GRAD_LIMIT on random sorted and unsorted rows."""
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    arrays = {"dyadic": lambda: chip_smoke.dyadic_plane_rows(rng, 1024, 1026),
+              "random": lambda: chip_smoke.random_plane_rows(rng, 1024, 1026),
+              "unsorted": lambda: chip_smoke.random_plane_rows(rng, 64, 258, sort=False)}[rows]()
+    a, b, x = chip_smoke.complements(*_plane_on("cuda", arrays[:3]))
+    before = kmerge.grad_launches
+    for alpha_grads in (True, False):
+        got = kmerge.coupling_grads(a, b, x, alpha_grads)
+        ref = kmerge.coupling_grads_plain(a, b, x, alpha_grads)
+        torch.cuda.synchronize()
+        assert (got[0] is None) == (not alpha_grads)
+        for g, r in zip(got, ref):
+            if g is None:
+                continue
+            if rows == "dyadic":
+                assert torch.equal(g, r)
+            assert float((g - r).abs().max()) <= chip_smoke.COUPLING_GRAD_LIMIT * float(
+                r.abs().max())
+    assert kmerge.grad_launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop,window", chip_smoke.FRONTEND_CASES)
+def test_stft_frontend_kernel_and_its_gradient_on_card(n_fft, hop, window):
+    """Kernel 9 against the plain matmul at the gated step's shapes, and the
+    entry's gradient (plain matmul and overlap-add) against autograd of the
+    plain version."""
+    _need_cuda()
+    win = chip_smoke.hann_window(n_fft) if window is None else chip_smoke.get_window(window,
+                                                                                     n_fft)
+    x = torch.from_numpy(np.random.default_rng(n_fft + hop).uniform(
+        -0.9, 0.9, (64, 4096)).astype(np.float32)).cuda()
+    basis = kstft.windowed_dft(n_fft, win, x.device)
+    before = kstft.launches
+    got = kstft.stft_frontend_kernel(x, n_fft, hop, basis)
+    ref = kstft.stft_frontend_projection_plain(x, n_fft, hop, basis)
+    torch.cuda.synchronize()
+    assert kstft.launches == before + 1
+    assert float((got - ref).abs().max()) <= chip_smoke.FRONTEND_LIMIT * float(ref.abs().max())
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    dproj = torch.randn_like(got)
+    kstft.stft_frontend_projection(xa, n_fft, hop, win).backward(dproj)
+    kstft.stft_frontend_projection_plain(xb, n_fft, hop, basis).backward(dproj)
+    assert float((xa.grad - xb.grad).abs().max()) <= 1e-5 * float(xb.grad.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin", [1, 40])
+def test_conv_kernels_and_gradients_on_card(cin, dtype):
+    """Kernels 10 and 11 through ``conv1d_same``'s autograd at conv1's and the
+    prefilter's shapes: y, dx and dW on the card against the same Function
+    on the CPU (its plain versions: F.conv1d and conv1d_weight on the
+    rounded operands), within chip_smoke's CONV_LIMIT."""
+    _need_cuda()
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(rng.standard_normal((1024, cin, 285)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((40, cin, 15)) / np.sqrt(15 * cin))
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((1024, 40, 285)).astype(np.float32))
+    before = (kconv.launches, kconv.dw_launches)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        xx, ww = x.to(dev).requires_grad_(True), w.to(dev).requires_grad_(True)
+        y = kconv.conv1d_same(xx, ww, dtype)
+        y.backward(dy.to(dev))
+        outs.append([t.cpu() for t in (y.detach(), xx.grad, ww.grad)])
+    assert (kconv.launches, kconv.dw_launches) == (before[0] + 2, before[1] + 1)
+    for g, r in zip(*outs):
+        assert float((g - r).abs().max()) <= chip_smoke.CONV_LIMIT * float(r.abs().max())

@@ -33,6 +33,7 @@ from sot_tpu_torch import data as tdata  # noqa: E402
 from sot_tpu_torch.configs import get_experiment  # noqa: E402
 from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat,  # noqa: E402
                                    params_from_flax)
+from sot_tpu_torch.kernel_gates import resolve_gates  # noqa: E402
 from sot_tpu_torch.training import trainer as ttrainer  # noqa: E402
 from tests import _torch_golden_sot512  # noqa: E402
 from test_torch_train import TERMS, _max_rel, _port, _port_term_grads  # noqa: E402
@@ -64,7 +65,7 @@ def test_compute_loss_matches_jax(name):
     x = g["x"][:2]
     params = _params(g)
     mod = _port(params, get_experiment(name))
-    assert mod.kernels == "auto" and len(mod.x_pos) == 257
+    assert mod.kernels == resolve_gates("auto") and len(mod.x_pos) == 257
     port, _ = _port_term_grads(mod, x)
     jmod = jtrainer.build_modules(jax_get_experiment(name))
     names = list(TERMS.values())
@@ -98,7 +99,8 @@ def test_routes_give_one_loss_and_gradient():
         mod = ttrainer.build_modules(get_experiment("SOT-512"), device="cpu", kernels=kernels)
         mod.encoder.load_state_dict(state)
         sot = [fn for kind, fn, _ in mod.loss_fns if kind == "wasserstein"]
-        assert mod.kernels == kernels and [fn.kernels for fn in sot] == [kernels]
+        gates = resolve_gates(kernels)
+        assert mod.kernels == gates and [fn.kernels for fn in sot] == [gates]
         out[kernels] = _port_term_grads(mod, x)[0]["w1d"]
     (la, ga), (ld, gd) = out["auto"], out["default"]
     assert abs(la - ld) <= 1e-5 * abs(ld)
