@@ -14,8 +14,10 @@ Phases (any failure raises and the script exits non-zero):
                plane.cu and conv.cu hold two each)
   3. kernels — each slice-1 kernel against its plain PyTorch version on the
                card at the serving shapes: CQT [64, 4095] -> [64, 16, 570]
-               within max|d|/max|ref| <= 1e-4 (f32 vs f32, TF32 off,
-               32768-term sums in another order); synth [64, 16, 20] ->
+               within max|d|/max|ref| <= 1e-4 (f32-accurate 3xTF32 vs f32,
+               32768-term sums in another order), its error against a
+               float64 product at most 2x the plain version's, two launches
+               bit-equal; synth [64, 16, 20] ->
                [64, 4096] with envelopes bit-equal and audio within atol
                2e-2, corr > 0.9999 (phase prefix summed in another order,
                ~1 ulp at 1e4 rad)
@@ -51,7 +53,8 @@ Phases (any failure raises and the script exits non-zero):
                the real SOT rows within COUPLING_GRAD_LIMIT, bit for bit on
                dyadic tie rows, on unsorted rows; the STFT frontend (kernel
                9) at each (n_fft, hop) of the gated steps within
-               FRONTEND_LIMIT; the conv forward and dx (kernel 10) and
+               FRONTEND_LIMIT, its error against a float64 projection at
+               most 2x the plain version's; the conv forward and dx (kernel 10) and
                weight gradient (kernel 11) at conv1's and the prefilter's
                shapes in f32 and bf16 within CONV_LIMIT; [timing] of each
                (CUDA events, profiler device time, plain, library, bound)
@@ -101,7 +104,8 @@ Phases (any failure raises and the script exits non-zero):
                and SOT-512 under GATED 4 steps
 
 Kernel, plain and library timings use CUDA events on inputs that change
-between iterations. The last three lines are the per-kernel JSON (each
+between iterations, device times torch.profiler; a [profile] line sums the
+device busy ms of each profiled request and step. The last three lines are the per-kernel JSON (each
 kernel's launches from the run whose route it is on), the card (nvidia-smi
 name, power.limit) and {"ok": true, "device": {...}}.
 """
@@ -152,10 +156,11 @@ GOLDEN_512 = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot512_seed42_trains
 GOLDEN_GATED = os.path.join(ROOT, "sot_tpu_torch", "golden",
                             "sot2048_seed42_trainstep_gated.npz")
 
-# H100 SXM data sheet (dense): FP32 on the CUDA cores, bf16 on the tensor
-# cores, HBM3 bandwidth.
+# H100 SXM data sheet (dense): FP32 on the CUDA cores, bf16 and TF32 on the
+# tensor cores, HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # FP32 operations per (lane, sample) of the synth: f-envelope 3 (sub, mul,
 # add), a-envelope 3 (mul, mul, add), Nyquist compare 1, phase increment 1,
@@ -217,8 +222,8 @@ GATED = KernelGates(w2_merge="full", conv=True, stft_frontend=True)
 # kernel 8 against its plain version where it is not bit-equal: max|d|/max
 # (both sum x in float64, in another order, and round once)
 COUPLING_GRAD_LIMIT = 1e-6
-# kernel 9 against the plain f32 matmul (TF32 off): max|d|/max (f32 sums
-# over n_fft taps in another order)
+# kernel 9 (an f32 FFT) against the plain f32 matmul (TF32 off): max|d|/max
+# (both round their sums over n_fft taps in f32, in other orders)
 FRONTEND_LIMIT = 1e-5
 # kernels 10 and 11 against F.conv1d / conv1d_weight on the same rounded
 # operands (TF32 off): max|d|/max (exact products, f32 sums in another order)
@@ -251,21 +256,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def roofline(flops: float, bytes_moved: float):
-    """(bound_ms, bound_by): the larger of the operations over the FP32 peak
-    and the bytes over the memory rate."""
-    ops_s, bytes_s = flops / PEAK_FP32_FLOPS, bytes_moved / PEAK_BYTES_PER_S
+def roofline(flops: float, bytes_moved: float, peak: float = PEAK_FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of the operations over ``peak`` (the
+    FP32 peak unless given) and the bytes over the memory rate."""
+    ops_s, bytes_s = flops / peak, bytes_moved / PEAK_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def device_ms(fn, inputs, kernel: str, per_call: int = 1) -> float:
+def device_ms(fn, inputs, kernel, per_call: int = 1) -> float:
     """Mean device time per call of the ``per_call`` distinct CUDA kernels
     whose name contains ``kernel`` (torch.profiler, TIMING_ITERS calls
     cycling through ``inputs``): the kernels alone, without the host's launch
     gap that a CUDA-event time of a microsecond kernel includes. The sum of
     each kernel's mean over the records the profiler gave: it can drop
     records (an H100 run saw 25 of 40), so a profile that holds fewer than
-    half of some kernel's launches is taken again, up to three times."""
+    half of some kernel's launches is taken again, up to three times. With
+    ``kernel`` None (a library call whose kernels are not ours to name):
+    every device record, summed over the calls, from a profile that holds at
+    least one record per call (NaN, printed, if three profiles do not)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -279,11 +287,17 @@ def device_ms(fn, inputs, kernel: str, per_call: int = 1) -> float:
             torch.cuda.synchronize()
         us: dict = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA and kernel in e.name:
+            if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name):
                 us.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if kernel is None and sum(len(v) for v in us.values()) >= TIMING_ITERS:
+            return sum(sum(v) for v in us.values()) / TIMING_ITERS / 1e3
         counts = sorted(len(v) for v in us.values())
-        if len(us) == per_call and counts[0] >= TIMING_ITERS // 2:
+        if kernel is not None and len(us) == per_call and counts[0] >= TIMING_ITERS // 2:
             break
+    if kernel is None:
+        print(f"[timing] the profiler gave {sum(counts)} device records for {TIMING_ITERS} "
+              f"library calls in three tries: their device ms not measured")
+        return float("nan")
     require(len(us) == per_call and counts[0] >= TIMING_ITERS // 2,
             f"the profiler saw {counts} launches of {len(us)} {kernel} kernels, "
             f"expected {per_call} x {TIMING_ITERS}")
@@ -321,6 +335,11 @@ def synth_controls(rng: np.random.Generator, dev: torch.device, sr: int):
     return amps.to(dev).contiguous(), freqs.to(dev).contiguous()
 
 
+def f64_rel(got: torch.Tensor, ref64: torch.Tensor) -> float:
+    """max|got - ref64| / max|ref64| against a float64 computation."""
+    return float((got.double() - ref64).abs().max() / ref64.abs().max())
+
+
 def check_cqt(cfg, dev, rng):
     n_bins = get_cqt_n_bins(cfg.sample_rate, cfg.cqt_fmin, cfg.cqt_bins_per_semitone)
     bank = cqt_bank(cfg.sample_rate, cfg.cqt_fmin, n_bins, 12 * cfg.cqt_bins_per_semitone,
@@ -335,40 +354,58 @@ def check_cqt(cfg, dev, rng):
 
     xpad = padded()
     got = kcqt.cqt_project(xpad, bank, hop, n_frames, n_out)
+    again = kcqt.cqt_project(xpad, bank, hop, n_frames, n_out)
     ref = kcqt.cqt_project_plain(xpad, bank, hop, n_frames, n_out)
+    ref64 = torch.matmul(xpad.double().unfold(1, width, hop)[:, :n_frames],
+                         bank[:, :n_out].double())
     torch.cuda.synchronize()
     require(got.shape == (BATCH, n_frames, n_out), f"cqt shape {tuple(got.shape)}")
     err = float((got - ref).abs().max())
     rel = err / float(ref.abs().max())
+    rel64, plain64 = f64_rel(got, ref64), f64_rel(ref, ref64)
     print(f"[kernels] cqt {tuple(xpad.shape)} -> {tuple(got.shape)}: "
-          f"max|d| {err:.3e}, max|d|/max|ref| {rel:.3e} (limit 1e-4)")
+          f"max|d| {err:.3e}, max|d|/max|ref| {rel:.3e} (limit 1e-4); against float64: "
+          f"kernel {rel64:.3e}, plain f32 {plain64:.3e} (limit 2x plain); two launches "
+          f"bit-equal {torch.equal(got, again)}")
     require(bool(torch.isfinite(got).all()) and rel <= 1e-4, "cqt kernel disagrees")
+    require(rel64 <= 2.0 * plain64, "cqt kernel is less accurate than f32")
+    require(torch.equal(got, again), "cqt kernel is not deterministic")
 
     inputs = [(padded(), bank, hop, n_frames, n_out) for _ in range(TIMING_INPUTS)]
     ms = median_ms(kcqt.cqt_project, inputs)
+    dev_ms = device_ms(kcqt.cqt_project, inputs, "cqt_", 2)
     plain_ms = median_ms(kcqt.cqt_project_plain, inputs)
     bank_c = bank[:, :n_out].contiguous()
     lib_inputs = [(a[0].unfold(1, width, hop)[:, :n_frames].contiguous(), bank_c)
                   for a in inputs]
     library_ms = median_ms(torch.matmul, lib_inputs)
+    lib_dev_ms = device_ms(torch.matmul, lib_inputs, None)
 
     # The function needs only the bank's non-zero support: each output is a
     # sum over the support of its column, so the bound counts 2 * rows * nnz
-    # operations and nnz bank entries read once.
+    # operations at the 3xTF32 rate (three TF32 products per f32-accurate
+    # one) and nnz bank entries read once; the FP32-core bound and the dense
+    # product are printed beside it.
     m_rows = BATCH * n_frames
     nnz = int(torch.count_nonzero(bank[:, :n_out]))
-    bound_ms, bound_by = roofline(2.0 * m_rows * nnz,
-                                  4.0 * (xpad.numel() + nnz + m_rows * n_out))
+    nbytes = 4.0 * (xpad.numel() + nnz + m_rows * n_out)
+    bound_ms, bound_by = roofline(2.0 * m_rows * nnz, nbytes, PEAK_TF32_FLOPS / 3)
+    fp32_ms, _ = roofline(2.0 * m_rows * nnz, nbytes)
+    plan_flops = kcqt._device_plan(bank, n_out)[0].flops(m_rows)
     dense_flops = 2.0 * m_rows * width * n_out
-    dense_ms, _ = roofline(dense_flops, 4.0 * (xpad.numel() + width * n_out + m_rows * n_out))
-    print(f"[timing] cqt_project: bank non-zero share {nnz / (width * n_out):.4f} "
-          f"({nnz} of {width * n_out}); bound {bound_ms:.4f} ms over the non-zero "
-          f"support; the dense product the kernel computes is {dense_flops / 1e9:.2f} "
-          f"GFLOP, dense bound {dense_ms:.4f} ms")
+    print(f"[timing] cqt_project: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, "
+          f"torch.matmul on the unfolded frames {library_ms:.4f} (device {lib_dev_ms:.4f}; kernel "
+          f"device time below it: {dev_ms < lib_dev_ms}) | {card_line()}")
+    print(f"[timing] cqt_project: bank non-zero share {nnz / (width * n_out):.4f} ({nnz} of "
+          f"{width * n_out}): {2.0 * m_rows * nnz / 1e9:.3f} GFLOP; bound {bound_ms:.4f} ms "
+          f"({bound_by}; 3xTF32 at {PEAK_TF32_FLOPS / 3e12:.0f} TFLOP/s), FP32-core bound "
+          f"{fp32_ms:.4f} ms; the tile plan computes {plan_flops / 1e9:.3f} GFLOP "
+          f"({plan_flops / (2.0 * m_rows * nnz):.3f}x the non-zero count); the dense product "
+          f"is {dense_flops / 1e9:.2f} GFLOP")
     return {
         "name": "cqt_project", "route": "cuda", "source": "sot_tpu_torch/csrc/cqt.cu",
         "replaces": "sot_tpu/ops/pallas/cqt.py:52",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
 
@@ -490,6 +527,10 @@ def serve(cfg, mod):
     return launches, requests[-1]
 
 
+# device busy ms of each profiled call, by what profile_device was told it is
+BUSY_MS: dict = {}
+
+
 def profile_device(what: str, fn, top: int = 12):
     """Device time by kernel for one call of ``fn`` (torch.profiler), and the
     device's idle share between its first and last kernel. Returns the busy
@@ -510,6 +551,7 @@ def profile_device(what: str, fn, top: int = 12):
         print(f"[profile] {what}: the profiler saw no device events: breakdown not measured")
         return None
     busy = sum(by_name.values())
+    BUSY_MS[what] = busy / 1e3
     span = max(b for _, b in spans) - min(a for a, _ in spans)
     print(f"[profile] {what}: {len(spans)} device events, busy {busy / 1e3:.4f} ms "
           f"over a {span / 1e3:.4f} ms span (idle share {1.0 - busy / span:.3f})")
@@ -1429,48 +1471,62 @@ FRONTEND_CASES = [(2048, 256, "flattop"), (2048, 512, None), (1024, 256, None),
                   (512, 128, None), (512, 256, "flattop")]
 
 
+def windowed_dft64(n_fft: int, window: np.ndarray) -> torch.Tensor:
+    """[n_fft, n_fft + 2] real-DFT basis [cos | -sin] times the f32 window,
+    all in float64: the frontend's function without an f32 rounding."""
+    k = np.arange(n_fft // 2 + 1)
+    ang = 2.0 * np.pi * np.arange(n_fft)[:, None] * k[None, :] / n_fft
+    basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1)
+    return torch.from_numpy(basis * np.asarray(window, np.float32).astype(np.float64)[:, None])
+
+
 def check_stft_frontend(dev, rng):
     """[kernels] and [timing] for B9 at each (n_fft, hop) of the gated path
-    on [64, 4096] audio. The JSON entry is the loss STFT 2048/256."""
+    on [64, 4096] audio, against the plain f32 matmul and a float64 one. The
+    JSON entry is the loss STFT 2048/256."""
     entry, err = None, 0.0
     for n_fft, hop, window in FRONTEND_CASES:
         win_np = hann_window(n_fft) if window is None else get_window(window, n_fft)
         basis = kstft.windowed_dft(n_fft, win_np, dev)
+        win = kstft.window_tensor(win_np, dev)
         n_cols = 2 * (n_fft // 2 + 1)
 
         def audio():
             x = rng.uniform(-0.9, 0.9, (BATCH, 4096)).astype(np.float32)
             return torch.from_numpy(x).to(dev)
 
-        inputs = [(audio(), n_fft, hop, basis) for _ in range(TIMING_INPUTS)]
+        inputs = [(audio(), n_fft, hop, win) for _ in range(TIMING_INPUTS)]
+        plain_inputs = [(a, n_fft, hop, basis) for a, *_ in inputs]
         got = kstft.stft_frontend_kernel(*inputs[0])
-        ref = kstft.stft_frontend_projection_plain(*inputs[0])
+        ref = kstft.stft_frontend_projection_plain(*plain_inputs[0])
+        frames = kstft._frames(inputs[0][0], n_fft, hop)
+        ref64 = torch.matmul(frames.double(), windowed_dft64(n_fft, win_np).to(dev))
         torch.cuda.synchronize()
         rel = max_rel(got, ref)
+        rel64, plain64 = f64_rel(got, ref64), f64_rel(ref, ref64)
         err = max(err, float((got - ref).abs().max()))
+        print(f"[kernels] stft frontend (B9) {n_fft}/{hop} {window or 'hann'} [{BATCH}, 4096] -> "
+              f"{tuple(got.shape)}: max|d|/max {rel:.3e} (limit {FRONTEND_LIMIT}); against "
+              f"float64: kernel {rel64:.3e}, plain f32 {plain64:.3e} (limit 2x plain)")
         require(got.shape == (BATCH, 4096 // hop, n_cols) and bool(torch.isfinite(got).all())
                 and rel <= FRONTEND_LIMIT, f"stft frontend disagrees at {n_fft}/{hop}")
+        require(rel64 <= 2.0 * plain64, f"stft frontend less accurate than f32 at {n_fft}/{hop}")
         ms = median_ms(kstft.stft_frontend_kernel, inputs)
-        dev_ms = device_ms(kstft.stft_frontend_kernel, inputs, "stft_frontend_", 2)
-        plain_ms = median_ms(kstft.stft_frontend_projection_plain, inputs)
-        win = torch.from_numpy(win_np).to(dev)
+        dev_ms = device_ms(kstft.stft_frontend_kernel, inputs, "stft_frontend_", 1)
+        plain_ms = median_ms(kstft.stft_frontend_projection_plain, plain_inputs)
         lib_inputs = [(kstft._frames(a, n_fft, hop) * win,) for a, *_ in inputs]
         library_ms = median_ms(lambda f: torch.fft.rfft(f, dim=-1), lib_inputs)
+        lib_dev_ms = device_ms(lambda f: torch.fft.rfft(f, dim=-1), lib_inputs, None)
         rows = BATCH * (4096 // hop)
         # the function is the windowed rfft of each pad_end frame: ~2.5 n log2 n
         # operations for a real FFT of n points plus n for the window, with the
-        # audio and the window read and the spectra written once. The dense DFT
-        # matmul that this kernel (and the TPU's) does is printed as information.
+        # audio and the window read and the spectra written once
         fft_ops = rows * (2.5 * n_fft * math.log2(n_fft) + n_fft)
         bound_ms, bound_by = roofline(fft_ops, 4.0 * (BATCH * 4096 + n_fft + rows * n_cols))
-        dense_flops = 2.0 * rows * n_fft * n_cols
-        print(f"[kernels] stft frontend (B9) {n_fft}/{hop} {window or 'hann'} [{BATCH}, 4096] -> "
-              f"{tuple(got.shape)}: max|d|/max {rel:.3e} (limit {FRONTEND_LIMIT})")
         print(f"[timing] stft_frontend (B9) {n_fft}/{hop}: {ms:.4f} ms (device {dev_ms:.4f}), "
-              f"plain {plain_ms:.4f}, cuFFT rfft of the windowed frames {library_ms:.4f}, bound "
-              f"{bound_ms:.4f} ({bound_by}; rfft {fft_ops / 1e6:.1f} MFLOP); the kernel's dense "
-              f"DFT {dense_flops / 1e9:.2f} GFLOP, {dense_flops / PEAK_FP32_FLOPS * 1e3:.4f} ms "
-              f"at the FP32 peak | {card_line()}")
+              f"plain {plain_ms:.4f}, cuFFT rfft of the windowed frames {library_ms:.4f} "
+              f"(device {lib_dev_ms:.4f}; kernel device time below it: {dev_ms < lib_dev_ms}), "
+              f"bound {bound_ms:.4f} ({bound_by}; rfft {fft_ops / 1e6:.1f} MFLOP) | {card_line()}")
         if entry is None:
             entry = {"name": "stft_frontend", "route": "cuda",
                      "source": "sot_tpu_torch/csrc/stft.cu",
@@ -1660,7 +1716,7 @@ def train(cfg, dev, x_all, kernels="auto", on=(), window=True):
           f"last loss {float(logs['loss/total']):.6f}")
     print(f"[train] {label}: window step ms: {', '.join(f'{v:.3f}' for v in window)}")
     print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    busy = profile_device(f"one {cfg.name} train step",
+    busy = profile_device(f"one {label} train step",
                           lambda: trainer.train_steps(mod, state, x_all, offsets[-1:]), top=30)
     if busy is not None:
         median = statistics.median(window)
@@ -1774,6 +1830,7 @@ def main() -> int:
               f" ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), {k['launches']} launches "
               f"over the {TRAIN_STEPS} {run} train steps | {card}")
 
+    print(f"[profile] device busy ms: {json.dumps(BUSY_MS)} | {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,11 @@ re and im concatenated. The window is folded into the basis in f32
 
 Bound on the H100: bytes (the function is an O(n log n) rfft of each
 windowed frame, ~9.4 MB moved at the 2048/256 loss STFT of 64 clips). The
-kernel is a tiled SIMT SGEMM reading the frames straight from the audio, so
-it does the dense DFT product (8.6 GFLOP at that shape, 32.3 GFLOP over the
-gated train step's four shapes), see the source.
+kernel computes that rfft: each frame is read straight from the audio,
+windowed, packed two samples to a complex point and transformed by an
+in-shared-memory Stockham FFT of n/2 points with a real post-twiddle; one
+launch per STFT, no scratch. Twiddles come from ``twiddles`` (float64 on
+the host, rounded once to f32). See the source for the design notes.
 """
 
 from __future__ import annotations
@@ -37,10 +39,9 @@ from sot_tpu_torch.ops.kernels import _build
 # Launches of the CUDA kernel (plain-version calls are not counted).
 launches = 0
 
-_BN = 128   # block tile width of csrc/framed_gemm.cuh: the basis row stride
-_BK = 8     # block tile depth
-_MAX_SPLITS = 8
-_SMS = 132  # streaming multiprocessors of an H100 SXM
+_BN = 128   # the windowed basis' columns are padded to a multiple of this
+# the transform sizes the kernel takes (csrc/stft.cu instantiates these)
+FFT_SIZES = (256, 512, 1024, 2048)
 
 
 def frontend_applicable(n_fft: int, hop: int, t: int, pad_end: bool, center: bool) -> bool:
@@ -94,56 +95,73 @@ def stft_frontend_projection_plain(audio: torch.Tensor, n_fft: int, hop: int,
     return torch.matmul(_frames(audio, n_fft, hop), basis[:, :n_cols])
 
 
-def _splits(tiles: int, n_fft: int) -> int:
-    """Splits over K so that the output tiles fill the SMs, each split a
-    whole number of K tiles."""
-    s = 1
-    while s < _MAX_SPLITS and tiles * s < _SMS and n_fft % (2 * s * _BK) == 0:
-        s *= 2
-    return s
+def _twiddles(n_fft: int) -> np.ndarray:
+    """[n_fft, 2] f32 table (cos, -sin) of exp(-2 pi i m / n_fft), m < n_fft:
+    computed in float64 and rounded once."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+_TWIDDLES: dict = {}
+_WINDOWS: dict = {}
+
+
+def twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    """``_twiddles`` as a tensor on ``device`` (cached per size and device)."""
+    key = (n_fft, str(device))
+    table = _TWIDDLES.get(key)
+    if table is None:
+        table = _TWIDDLES[key] = torch.from_numpy(_twiddles(n_fft)).to(device)
+    return table
+
+
+def window_tensor(window: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The f32 window as a tensor on ``device`` (cached per window and device)."""
+    win = np.ascontiguousarray(window, np.float32)
+    key = (win.tobytes(), str(device))
+    t = _WINDOWS.get(key)
+    if t is None:
+        t = _WINDOWS[key] = torch.from_numpy(win).to(device)
+    return t
 
 
 def _bind() -> ctypes.CDLL:
     lib = _build.load("stft")
-    fn = lib.stft_frontend_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn = lib.stft_frontend_fft
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def stft_frontend_kernel(audio: torch.Tensor, n_fft: int, hop: int,
-                         basis: torch.Tensor) -> torch.Tensor:
-    """The projection [batch, C, 2(n_fft/2+1)] of ``audio`` [batch, T] (no
-    autograd): the plain version on a CPU tensor, else the kernel."""
+                         window: torch.Tensor) -> torch.Tensor:
+    """The projection [batch, C, 2(n_fft/2+1)] of ``audio`` [batch, T] with
+    the f32 ``window`` [n_fft] (no autograd): the plain version on a CPU
+    tensor, else the kernel."""
     if audio.device.type == "cpu":
+        basis = windowed_dft(n_fft, window.numpy(), audio.device)
         return stft_frontend_projection_plain(audio, n_fft, hop, basis)
-    if audio.device.type != "cuda" or basis.device != audio.device:
-        raise ValueError(f"stft_frontend: tensors on {audio.device} / {basis.device}")
-    if audio.dtype != torch.float32 or basis.dtype != torch.float32:
-        raise TypeError("stft_frontend: the CUDA kernel takes float32 audio and basis")
-    if audio.ndim != 2 or basis.ndim != 2:
-        raise ValueError("stft_frontend: expected audio [batch, T] and basis [n_fft, N]")
+    if audio.device.type != "cuda" or window.device != audio.device:
+        raise ValueError(f"stft_frontend: tensors on {audio.device} / {window.device}")
+    if audio.dtype != torch.float32 or window.dtype != torch.float32:
+        raise TypeError("stft_frontend: the CUDA kernel takes float32 audio and window")
+    if audio.ndim != 2 or window.shape != (n_fft,):
+        raise ValueError("stft_frontend: expected audio [batch, T] and window [n_fft]")
+    if n_fft not in FFT_SIZES:
+        raise ValueError(f"stft_frontend: n_fft {n_fft}: the CUDA kernel takes an FFT size "
+                         f"in {FFT_SIZES}")
     batch, t = audio.shape
-    n_cols = 2 * (n_fft // 2 + 1)
-    ldb = basis.shape[1]
-    if (basis.shape[0] != n_fft or ldb % _BN or n_cols > ldb or n_fft % _BK
-            or not frontend_applicable(n_fft, hop, t, True, False)):
-        raise ValueError(f"stft_frontend: n_fft {n_fft}, hop {hop}, T {t}, basis "
-                         f"{tuple(basis.shape)}: needs hop % 128 == 0, hop | T, hop | n_fft "
-                         f"and a basis [n_fft, multiple of {_BN}]")
-    audio, basis = audio.contiguous(), basis.contiguous()
-    if basis.data_ptr() % 16:
-        raise ValueError("stft_frontend: the basis must be 16-byte aligned")
+    if not frontend_applicable(n_fft, hop, t, True, False):
+        raise ValueError(f"stft_frontend: n_fft {n_fft}, hop {hop}, T {t}: needs hop % 128 "
+                         f"== 0, hop | T and hop | n_fft")
+    audio, window = audio.contiguous(), window.contiguous()
     n_frames = t // hop
-    m_rows = batch * n_frames
-    splits = _splits((ldb // _BN) * (-(-m_rows // 128)), n_fft)
-    partial = torch.empty((splits, m_rows, ldb), dtype=torch.float32, device=audio.device)
-    out = torch.empty((batch, n_frames, n_cols), dtype=torch.float32, device=audio.device)
-    err = _bind().stft_frontend_f32(audio.data_ptr(), basis.data_ptr(), partial.data_ptr(),
-                                    out.data_ptr(), batch, t, n_frames, hop, n_fft, ldb,
-                                    n_cols, splits,
+    out = torch.empty((batch, n_frames, n_fft + 2), dtype=torch.float32, device=audio.device)
+    err = _bind().stft_frontend_fft(audio.data_ptr(), window.data_ptr(),
+                                    twiddles(n_fft, audio.device).data_ptr(), out.data_ptr(),
+                                    batch, t, n_frames, hop, n_fft,
                                     torch.cuda.current_stream(audio.device).cuda_stream)
-    _build.check(err, "stft_frontend_f32")
+    _build.check(err, "stft_frontend_fft")
     global launches
     launches += 1
     return out
@@ -164,14 +182,13 @@ def overlap_add(dframes: torch.Tensor, hop: int, t: int) -> torch.Tensor:
 
 class _Frontend(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, audio, n_fft, hop, basis):
-        ctx.save_for_backward(basis)
-        ctx.n_fft, ctx.hop, ctx.t = n_fft, hop, audio.shape[-1]
-        return stft_frontend_kernel(audio, n_fft, hop, basis)
+    def forward(ctx, audio, n_fft, hop, window):
+        ctx.n_fft, ctx.hop, ctx.t, ctx.window = n_fft, hop, audio.shape[-1], window
+        return stft_frontend_kernel(audio, n_fft, hop, window_tensor(window, audio.device))
 
     @staticmethod
     def backward(ctx, dproj):
-        (basis,) = ctx.saved_tensors
+        basis = windowed_dft(ctx.n_fft, ctx.window, dproj.device)
         n_cols = 2 * (ctx.n_fft // 2 + 1)
         dframes = torch.matmul(dproj, basis[:, :n_cols].T)
         return overlap_add(dframes, ctx.hop, ctx.t), None, None, None
@@ -182,5 +199,4 @@ def stft_frontend_projection(audio: torch.Tensor, n_fft: int, hop: int,
     """rfft projection [batch, C, 2(n_fft/2+1)] of the ``window``-weighted
     pad_end frames of ``audio`` [batch, T], re | im along the last axis;
     differentiable in ``audio``. Requires ``frontend_applicable``."""
-    basis = windowed_dft(n_fft, window, audio.device)
-    return _Frontend.apply(audio, n_fft, hop, basis)
+    return _Frontend.apply(audio, n_fft, hop, window)

@@ -74,9 +74,101 @@ def test_wrappers_raise_on_non_cuda_devices():
         ksynth.synth_render(amps, amps, 4096, 16000)
 
 
-def test_cqt_split_k_divides_the_window():
-    assert kcqt._splits(32768) == 16
-    assert 1024 % (kcqt._splits(1024) * 8) == 0
+def _dft_4q(v: np.ndarray) -> np.ndarray:
+    """The kernel's in-register DFT of R = 4Q points (last axis): four-point
+    DFTs over n1 of v[Q n1 + n2], the twiddles W_R^(n2 k1), then Q-point DFTs
+    over n2, X[k1 + 4 k2]. R = 2 and 4 are plain butterflies."""
+    r = v.shape[-1]
+    if r == 2:
+        return np.stack([v[..., 0] + v[..., 1], v[..., 0] - v[..., 1]], axis=-1)
+    q = max(r // 4, 1)
+    w4 = np.array([[1, 1, 1, 1], [1, -1j, -1, 1j], [1, -1, 1, -1], [1, 1j, -1, -1j]],
+                  np.complex64)
+    y = np.einsum("kn,...nm->...km", w4, v.reshape(v.shape[:-1] + (4, q)))  # y[k1, n2]
+    k1, n2 = np.meshgrid(np.arange(4), np.arange(q), indexing="ij")
+    y = y * np.exp(-2j * np.pi * k1 * n2 / r).astype(np.complex64)
+    wq = np.exp(-2j * np.pi * np.outer(np.arange(q), np.arange(q)) / q).astype(np.complex64)
+    x = np.einsum("...kn,mn->...mk", y, wq)  # x[k2, k1] = X[k1 + 4 k2]
+    return x.reshape(v.shape).astype(np.complex64)
+
+
+def stockham_rfft(frames: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """csrc/stft.cu's algorithm in numpy, complex64 arithmetic: pack the
+    windowed frames [rows, n] two samples to a complex point, run the
+    Stockham passes of an n/2-point FFT with the kernel's radices (P while
+    it divides what is left, then the rest; P = 16 from n = 1024, 8 below)
+    and the real
+    post-twiddle two bins (k, n/2 - k) at a time; [rows, n + 2] re | im."""
+    n = frames.shape[1]
+    half = n // 2
+    tw = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
+    z = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(np.complex64)
+    p, radices, size = (16 if half >= 512 else 8), [], 1
+    while size * p <= half:
+        radices, size = radices + [p], size * p
+    radices += [half // size] if size < half else []
+    ns = 1
+    for r in radices:
+        j = np.arange(half // r)
+        k = j & (ns - 1)
+        v = np.stack([z[:, j + q * (half // r)] for q in range(r)], axis=-1)
+        if ns > 1:
+            v = v * tw[np.outer(k * (2 * half // (r * ns)), np.arange(r))]
+        v = _dft_4q(v)
+        d = (j - k) * r + k
+        o = np.empty_like(z)
+        for q in range(r):
+            o[:, d + q * ns] = v[..., q]
+        z, ns = o, ns * r
+    assert ns == half
+    k = np.arange(half // 2 + 1)
+    zk, zn = z[:, k % half], z[:, (half - k) % half]
+    e = np.float32(0.5) * (zk + np.conj(zn))
+    t = tw[k] * (np.complex64(-0.5j) * (zk - np.conj(zn)))
+    x = np.empty((len(z), half + 1), np.complex64)
+    x[:, half - k] = np.conj(e - t)
+    x[:, k] = e + t
+    return np.concatenate([x.real, x.imag], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_fft", kstft.FFT_SIZES)
+def test_fft_twiddle_table_against_float64(n_fft):
+    table = kstft._twiddles(n_fft)
+    assert table.dtype == np.float32 and table.shape == (n_fft, 2)
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    want = np.stack([np.cos(ang), -np.sin(ang)], axis=1)
+    # rounded once: each entry the f32 nearest to its float64 value
+    np.testing.assert_array_equal(table, want.astype(np.float32))
+    assert np.abs(table - want).max() <= 2.0 ** -25
+    assert table[0, 0] == 1.0 and table[n_fft // 2, 0] == -1.0
+
+
+@pytest.mark.parametrize("n_fft", kstft.FFT_SIZES)
+def test_fft_frontend_algebra_matches_dense_projection(n_fft):
+    """The packing, the Stockham passes and the separation of the kernel,
+    emulated in numpy, against the frames times the windowed basis (within
+    1e-5 of the max, as chip_smoke's FRONTEND_LIMIT) and against a float64
+    rfft."""
+    win = chip_smoke.get_window("flattop", n_fft)
+    frames = np.random.default_rng(n_fft).uniform(-0.9, 0.9, (16, n_fft)).astype(np.float32)
+    got = stockham_rfft(frames * win, kstft._twiddles(n_fft))
+    dense = frames @ kstft._windowed_dft(n_fft, win)[:, :n_fft + 2]
+    assert float(np.abs(got - dense).max()) <= 1e-5 * float(np.abs(dense).max())
+    exact = np.fft.rfft(frames.astype(np.float64) * win.astype(np.float64), axis=1)
+    exact = np.concatenate([exact.real, exact.imag], axis=1)
+    assert float(np.abs(got - exact).max()) <= 1e-6 * float(np.abs(exact).max())
+
+
+def test_frontend_kernel_wrapper_takes_plain_version_on_cpu():
+    win = chip_smoke.hann_window(512)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(-0.9, 0.9, (2, 1024))
+                         .astype(np.float32))
+    before = kstft.launches
+    got = kstft.stft_frontend_kernel(x, 512, 128, kstft.window_tensor(win, x.device))
+    assert kstft.launches == before
+    basis = kstft.windowed_dft(512, win, x.device)
+    assert torch.equal(got, kstft.stft_frontend_projection_plain(x, 512, 128, basis))
+    assert got.shape == (2, 8, 514)
 
 
 def _need_cuda():
@@ -85,15 +177,24 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
-def test_cqt_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("batch", [1, 3, 64])
+def test_cqt_kernel_matches_plain_on_card(batch):
+    """Within 1e-4 of the plain version; against a float64 product no more
+    than 2x the plain f32 version's error; two launches bit-equal. Batches
+    of 16, 48 and 1024 rows: part-filled row tiles and the serving shape."""
     _need_cuda()
-    xpad, bank = _cqt_inputs("cuda", batch=64)
+    xpad, bank = _cqt_inputs("cuda", batch=batch)
     before = kcqt.launches
     got = kcqt.cqt_project(xpad, bank, 256, 16, 570)
+    again = kcqt.cqt_project(xpad, bank, 256, 16, 570)
     ref = kcqt.cqt_project_plain(xpad, bank, 256, 16, 570)
+    ref64 = torch.matmul(xpad.double().unfold(1, bank.shape[0], 256)[:, :16],
+                         bank[:, :570].double())
     torch.cuda.synchronize()
-    assert kcqt.launches == before + 1
+    assert kcqt.launches == before + 2
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert chip_smoke.f64_rel(got, ref64) <= 2.0 * chip_smoke.f64_rel(ref, ref64)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -291,9 +392,10 @@ def test_coupling_grads_kernel_matches_plain_on_card(rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,hop,window", chip_smoke.FRONTEND_CASES)
 def test_stft_frontend_kernel_and_its_gradient_on_card(n_fft, hop, window):
-    """Kernel 9 against the plain matmul at the gated step's shapes, and the
-    entry's gradient (plain matmul and overlap-add) against autograd of the
-    plain version."""
+    """Kernel 9 against the plain matmul at the gated step's shapes (and,
+    against a float64 projection, no more than 2x the plain version's
+    error), and the entry's gradient (plain matmul and overlap-add) against
+    autograd of the plain version."""
     _need_cuda()
     win = chip_smoke.hann_window(n_fft) if window is None else chip_smoke.get_window(window,
                                                                                      n_fft)
@@ -301,16 +403,32 @@ def test_stft_frontend_kernel_and_its_gradient_on_card(n_fft, hop, window):
         -0.9, 0.9, (64, 4096)).astype(np.float32)).cuda()
     basis = kstft.windowed_dft(n_fft, win, x.device)
     before = kstft.launches
-    got = kstft.stft_frontend_kernel(x, n_fft, hop, basis)
+    got = kstft.stft_frontend_kernel(x, n_fft, hop, kstft.window_tensor(win, x.device))
     ref = kstft.stft_frontend_projection_plain(x, n_fft, hop, basis)
+    ref64 = torch.matmul(kstft._frames(x, n_fft, hop).double(),
+                         chip_smoke.windowed_dft64(n_fft, win).cuda())
     torch.cuda.synchronize()
     assert kstft.launches == before + 1
     assert float((got - ref).abs().max()) <= chip_smoke.FRONTEND_LIMIT * float(ref.abs().max())
+    assert chip_smoke.f64_rel(got, ref64) <= 2.0 * chip_smoke.f64_rel(ref, ref64)
     xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
     dproj = torch.randn_like(got)
     kstft.stft_frontend_projection(xa, n_fft, hop, win).backward(dproj)
     kstft.stft_frontend_projection_plain(xb, n_fft, hop, basis).backward(dproj)
     assert float((xa.grad - xb.grad).abs().max()) <= 1e-5 * float(xb.grad.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [768, 4096])
+def test_stft_frontend_kernel_refuses_other_sizes_on_card(n_fft):
+    """Only the FFT sizes the kernel instantiates: a size that is not a power
+    of two, or one past 2048, raises and launches nothing."""
+    _need_cuda()
+    x = torch.zeros((2, 4096), device="cuda")
+    before = kstft.launches
+    with pytest.raises(ValueError, match="FFT size"):
+        kstft.stft_frontend_kernel(x, n_fft, 256, torch.ones(n_fft, device="cuda"))
+    assert kstft.launches == before
 
 
 @pytest.mark.cuda
