@@ -56,8 +56,10 @@ Phases (any failure raises and the script exits non-zero):
                FRONTEND_LIMIT, its error against a float64 projection at
                most 2x the plain version's; the conv forward and dx (kernel 10) and
                weight gradient (kernel 11) at conv1's and the prefilter's
-               shapes in f32 and bf16 within CONV_LIMIT; [timing] of each
-               (CUDA events, profiler device time, plain, library, bound)
+               shapes in f32 (3xTF32) and bf16 within CONV_LIMIT, within 2x
+               the plain version's error against float64, two launches
+               bit-equal; [timing] of each (CUDA events, profiler device
+               time, plain, library events and device time, bound)
   7. train-golden — sot_tpu_torch/golden/sot2048_seed42_trainstep.npz (JAX
                on the CPU with the shipped kernel gates), eval mode, the
                golden's 16 clips: the merge and refgrad kernels on the
@@ -100,8 +102,13 @@ Phases (any failure raises and the script exits non-zero):
                breakdown of one more; SOT-512-LogF (hybrid) and SOT-2048
                under kernels="default" (plane, kernels 6 + 7) 4 steps each;
                SOT-2048 under GATED (kernels 4 and 8-11, refgrad and the
-               plane kernels at 0) 4 steps, a window of 32 and a profile,
-               and SOT-512 under GATED 4 steps
+               plane kernels at 0) 4 steps, a window of 32 and a profile
+               (kernel 10 launched 16 times and kernel 11 8 times in the 4
+               steps), SOT-512 under GATED 4 steps, SOT-2048 under CONV_BF16
+               (auto with the bf16 conv stack, JAX's SOT_TPU_CONV_BF16) 4
+               steps; then, information only, the device busy ms of one
+               SOT-2048 step under auto (cuDNN f32 convs) beside CONV_F32
+               (kernels 10 and 11 in 3xTF32), profiled in turns
 
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations, device times torch.profiler; a [profile] line sums the
@@ -113,6 +120,7 @@ name, power.limit) and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -132,7 +140,7 @@ from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat, params_f
 from sot_tpu_torch.device import set_precision_policy
 from sot_tpu_torch.ops.cqt import cqt_bank
 from sot_tpu_torch.ops.kernels import _build
-from sot_tpu_torch.kernel_gates import KernelGates
+from sot_tpu_torch.kernel_gates import PRESETS, KernelGates
 from sot_tpu_torch.ops.kernels import conv as kconv
 from sot_tpu_torch.ops.kernels import cqt as kcqt
 from sot_tpu_torch.ops.kernels import merge as kmerge
@@ -228,6 +236,12 @@ FRONTEND_LIMIT = 1e-5
 # kernels 10 and 11 against F.conv1d / conv1d_weight on the same rounded
 # operands (TF32 off): max|d|/max (exact products, f32 sums in another order)
 CONV_LIMIT = 1e-5
+# The conv-stack gate of the JAX package's shipped recipe (SOT_TPU_CONV_BF16)
+# on the auto routes: 4 SOT-2048 steps on the card, its loss printed
+CONV_BF16 = dataclasses.replace(PRESETS["auto"], conv_bf16=True)
+# auto with the k > 1 convs on kernels 10 and 11 in f32 (3xTF32), against
+# auto's cuDNN f32 convs: an information-only in-step reading
+CONV_F32 = dataclasses.replace(PRESETS["auto"], conv=True, conv_dtype=torch.float32)
 # [train-golden-gated]: per leaf against the gated JAX golden, ~1.5x the
 # card's readings (worst leaf 3.006e-01 / 5.261e-02 / 2.900e-01 for W1D /
 # MSS / total, least cosine 0.990001 / 0.999488 / 0.989517). The W1D
@@ -432,15 +446,19 @@ def check_synth(cfg, dev, rng):
 
     inputs = [synth_controls(rng, dev, sr) + (t, sr) for _ in range(TIMING_INPUTS)]
     ms = median_ms(ksynth.synth_render, inputs)
+    # the lane kernel and the harmonic sum
+    dev_ms = device_ms(ksynth.synth_render, inputs, "synth_", 2)
     plain_ms = median_ms(ksynth.synth_render_plain, inputs)
     b, f, k = amps.shape
     # inputs: controls, the lo/frac tables and the window; output: the audio
     bound_ms, bound_by = roofline(float(b * k * t * SYNTH_FLOPS_PER_SAMPLE),
                                   4.0 * (2 * b * f * k + 2 * t + 2 * (t // f) + b * t))
+    print(f"[timing] synth_render: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) | {card_line()}")
     return {
         "name": "synth_render", "route": "cuda", "source": "sot_tpu_torch/csrc/synth.cu",
         "replaces": "sot_tpu/ops/pallas/synth.py:140",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -1390,6 +1408,7 @@ def check_synth_backward(cfg, dev, rng):
         g = torch.from_numpy(rng.standard_normal((BATCH, t)).astype(np.float32)).to(dev)
         inputs.append((a, f, g, t, sr))
     ms = median_ms(ksynth.synth_backward, inputs)
+    dev_ms = device_ms(ksynth.synth_backward, inputs, "synth_lane_bwd_kernel")
     plain_ms = median_ms(plain_synth_vjp, inputs)
     b, nf, k = amps.shape
     # inputs: controls, lo/frac tables, window, the frame ranges, dout;
@@ -1397,10 +1416,13 @@ def check_synth_backward(cfg, dev, rng):
     bound_ms, bound_by = roofline(float(b * k * t * SYNTH_BWD_FLOPS_PER_SAMPLE),
                                   4.0 * (2 * b * nf * k + 2 * t + 2 * (t // nf) + 2 * (nf + 1)
                                          + b * t + 2 * b * nf * k))
+    print(f"[timing] synth_backward: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, "
+          f"bound {bound_ms:.4f} ms ({bound_by}) | {card_line()}")
     return {
         "name": "synth_backward", "route": "cuda", "source": "sot_tpu_torch/csrc/synth.cu",
         "replaces": "sot_tpu/ops/pallas/synth.py:159",
-        "max_abs_err": float((d_freqs - ref_f).abs().max()), "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": float((d_freqs - ref_f).abs().max()), "ms": ms, "device_ms": dev_ms,
+        "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -1538,24 +1560,28 @@ def check_stft_frontend(dev, rng):
 
 
 def conv_bound(x, dy_or_y, weight, dtype):
-    """(bound_ms, bound_by) of one 'same' conv pass (B10 forward or dx, or
-    B11): 2 rows C_in C_out k W operations at the peak of the operand type
-    (bf16 tensor cores, or f32 CUDA cores), x and the other activation read
-    or written once in f32, the weight once."""
+    """(bound_ms, bound_by, fp32_ms) of one 'same' conv pass (B10 forward or
+    dx, or B11): 2 rows C_in C_out k W operations at the peak of the kernel's
+    operand type (the bf16 tensor cores, or for float32 operands the 3xTF32
+    rate: three TF32 products per f32-accurate one), x and the other
+    activation read or written once in f32, the weight once; fp32_ms is the
+    same bound at the FP32 CUDA-core peak, printed beside it."""
     rows, cin, width = x.shape
     cout, k = dy_or_y.shape[1], weight.shape[-1]
     flops = 2.0 * rows * cin * cout * k * width
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    ops_s = flops / peak
-    bytes_s = 4.0 * (x.numel() + dy_or_y.numel() + weight.numel()) / PEAK_BYTES_PER_S
-    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+    nbytes = 4.0 * (x.numel() + dy_or_y.numel() + weight.numel())
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+    return (*roofline(flops, nbytes, peak), roofline(flops, nbytes)[0])
 
 
 def check_conv(dev, rng):
     """[kernels] and [timing] for B10 (forward and dx) and B11 (dW) at
     conv1's (1 -> 40) and the prefilter's (40 -> 40) shapes of the 64-clip
-    batch ([1024, C, 285], k = 15), in both operand types. The JSON entries
-    are the prefilter's in bf16, the gated path's."""
+    batch ([1024, C, 285], k = 15), in both operand types: each within
+    CONV_LIMIT of its plain version, its error against a float64 conv of the
+    same rounded operands at most 2x the plain f32 version's, and two
+    launches bit-equal. The JSON entries are the prefilter's in bf16, the
+    gated path's."""
     entries, errs = {}, {"fwd": 0.0, "dw": 0.0}
     rows, width, k, ch = BATCH * 16, 285, 15, 40
     for cin in (1, ch):
@@ -1568,47 +1594,75 @@ def check_conv(dev, rng):
 
             x, w, dy = case()
             wt = w.flip(-1).transpose(0, 1)  # dx: the tap-flipped, transposed weight
-            got = (kconv.conv1d_forward(x, w, dtype), kconv.conv1d_forward(dy, wt, dtype),
-                   kconv.conv1d_weight(x, dy, k, dtype))
+
+            def launch():
+                return (kconv.conv1d_forward(x, w, dtype), kconv.conv1d_forward(dy, wt, dtype),
+                        kconv.conv1d_weight(x, dy, k, dtype))
+
+            got, again = launch(), launch()
             ref = (kconv.conv1d_same_plain(x, w, dtype), kconv.conv1d_same_plain(dy, wt, dtype),
                    kconv.conv1d_weight_plain(x, dy, k, dtype))
+            xr, wr, dyr, wtr = (kconv.round_to(t, dtype).double() for t in (x, w, dy, wt))
+            ref64 = (torch.nn.functional.conv1d(xr, wr, padding=k // 2),
+                     torch.nn.functional.conv1d(dyr, wtr, padding=k // 2),
+                     torch.nn.grad.conv1d_weight(xr, tuple(w.shape), dyr, padding=k // 2))
             torch.cuda.synchronize()
             rel = [max_rel(g, r) for g, r in zip(got, ref)]
+            e64 = [f64_rel(g, r) for g, r in zip(got, ref64)]
+            p64 = [f64_rel(g, r) for g, r in zip(ref, ref64)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             errs["fwd"] = max(errs["fwd"], *(float((g - r).abs().max())
                                            for g, r in zip(got[:2], ref[:2])))
             errs["dw"] = max(errs["dw"], float((got[2] - ref[2]).abs().max()))
             name = str(dtype).replace("torch.", "")
             print(f"[kernels] conv (B10/B11) x {tuple(x.shape)}, weight {tuple(w.shape)}, {name} "
                   f"operands: max|d|/max forward {rel[0]:.3e}, dx {rel[1]:.3e}, dW {rel[2]:.3e} "
-                  f"(limit {CONV_LIMIT})")
+                  f"(limit {CONV_LIMIT}); against float64 kernel / plain forward {e64[0]:.3e} / "
+                  f"{p64[0]:.3e}, dx {e64[1]:.3e} / {p64[1]:.3e}, dW {e64[2]:.3e} / "
+                  f"{p64[2]:.3e} (limit 2x plain); two launches bit-equal: {same}")
             require(all(bool(torch.isfinite(g).all()) for g in got) and max(rel) <= CONV_LIMIT,
                     f"conv kernels disagree at C_in {cin}, {name}")
+            require(all(e <= 2.0 * p for e, p in zip(e64, p64)),
+                    f"conv kernels above 2x the plain version's float64 error at C_in {cin}, "
+                    f"{name}")
+            require(same, f"conv kernels not bit-equal across two launches at C_in {cin}, {name}")
 
             inputs = [case() for _ in range(TIMING_INPUTS)]
             fwd = [(a, b, dtype) for a, b, _ in inputs]
             dxs = [(c, b.flip(-1).transpose(0, 1), dtype) for _, b, c in inputs]
             dws = [(a, c, k, dtype) for a, _, c in inputs]
             rounded = [tuple(kconv.round_to(t, dtype) for t in case) for case in inputs]
+            lib_fwd = [(a, b) for a, b, _ in rounded]
+            lib_dw = [(a, c) for a, _, c in rounded]
+
+            def conv1d(a, b):
+                return torch.nn.functional.conv1d(a, b, padding=k // 2)
+
+            def conv1d_weight(a, c):
+                return torch.nn.grad.conv1d_weight(a, (ch, cin, k), c, padding=k // 2)
+
             ms = {"fwd": median_ms(kconv.conv1d_forward, fwd),
                   "dx": median_ms(kconv.conv1d_forward, dxs),
                   "dw": median_ms(kconv.conv1d_weight, dws),
-                  "fwd device": device_ms(kconv.conv1d_forward, fwd, "conv_fwd_kernel"),
+                  "fwd device": device_ms(kconv.conv1d_forward, fwd, "conv_fwd_mma_kernel"),
+                  "dx device": device_ms(kconv.conv1d_forward, dxs, "conv_fwd_mma_kernel"),
                   "dw device": device_ms(kconv.conv1d_weight, dws, "conv_dw_", 2),
                   "fwd plain": median_ms(kconv.conv1d_same_plain, fwd),
                   "dw plain": median_ms(kconv.conv1d_weight_plain, dws),
-                  "fwd library": median_ms(
-                      lambda a, b: torch.nn.functional.conv1d(a, b, padding=k // 2),
-                      [(a, b) for a, b, _ in rounded]),
-                  "dw library": median_ms(
-                      lambda a, c: torch.nn.grad.conv1d_weight(a, (ch, cin, k), c, padding=k // 2),
-                      [(a, c) for a, _, c in rounded])}
+                  "fwd library": median_ms(conv1d, lib_fwd),
+                  "fwd library device": device_ms(conv1d, lib_fwd, None),
+                  "dw library": median_ms(conv1d_weight, lib_dw),
+                  "dw library device": device_ms(conv1d_weight, lib_dw, None)}
             bound = conv_bound(x, dy, w, dtype)
+            rate = "bf16 tensor cores" if dtype == torch.bfloat16 else "3xTF32"
             print(f"[timing] conv C_in {cin} {name}: B10 forward {ms['fwd']:.4f} ms (device "
                   f"{ms['fwd device']:.4f}, plain {ms['fwd plain']:.4f}, cuDNN conv1d "
-                  f"{ms['fwd library']:.4f}), dx {ms['dx']:.4f} ms; B11 dW {ms['dw']:.4f} ms "
+                  f"{ms['fwd library']:.4f}, device {ms['fwd library device']:.4f}), dx "
+                  f"{ms['dx']:.4f} ms (device {ms['dx device']:.4f}); B11 dW {ms['dw']:.4f} ms "
                   f"(device {ms['dw device']:.4f}, plain {ms['dw plain']:.4f}, conv1d_weight "
-                  f"{ms['dw library']:.4f}); bound {bound[0]:.4f} ms ({bound[1]}) each | "
-                  f"{card_line()}")
+                  f"{ms['dw library']:.4f}, device {ms['dw library device']:.4f}); bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}; {rate}) each, FP32-core bound "
+                  f"{bound[2]:.4f} ms | {card_line()}")
             if cin == ch and dtype == torch.bfloat16:
                 entries["fwd"] = {
                     "name": "conv1d_forward", "route": "cuda",
@@ -1670,15 +1724,16 @@ def train_dataset(cfg, dev):
     return x_all
 
 
-def train(cfg, dev, x_all, kernels="auto", on=(), window=True):
+def train(cfg, dev, x_all, kernels="auto", on=(), window=True, gates_name="gated"):
     """Train steps at batch 64 from the device-resident dataset: 4 steps
     with their launch counts (each kernel in ``on`` launched, every other
     kernel not), finite loss and grad_norm, changed parameters; with
-    ``window``, 32 more timed steps and a profile of one more."""
+    ``window``, 32 more timed steps and a profile of one more.
+    ``gates_name`` names a ``KernelGates`` in the printed label."""
     base = get_experiment("SOT-2048")
     require(all(getattr(base, f) == getattr(cfg, f) for f in DATA_FIELDS),
             f"{cfg.name} draws another dataset than the one generated")
-    label = f"{cfg.name} kernels={kernels if isinstance(kernels, str) else 'gated'}"
+    label = f"{cfg.name} kernels={kernels if isinstance(kernels, str) else gates_name}"
     mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
                         kernels=kernels)
     state = trainer.init_state(mod)
@@ -1723,6 +1778,31 @@ def train(cfg, dev, x_all, kernels="auto", on=(), window=True):
         print(f"[train] {label}: device busy {busy:.4f} ms of one step against the window's "
               f"median step {median:.3f} ms: idle share {1.0 - busy / median:.3f}")
     return launches
+
+
+def conv_gate_ab(cfg, dev, x_all):
+    """Information only (no preset changes): the device busy ms of one
+    SOT-2048 train step under ``auto`` (cuDNN's f32 convs) and under
+    CONV_F32 (the k > 1 convs on kernels 10 and 11 in 3xTF32), each model
+    warmed by two steps, profiled in turns (auto, kernels, kernels, auto)."""
+    mods = {}
+    for name, gates in (("auto", "auto"), ("auto + conv kernels f32", CONV_F32)):
+        mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
+                            kernels=gates)
+        state = trainer.init_state(mod)
+        trainer.train_steps(mod, state, x_all, [0, BATCH])
+        mods[name] = (mod, state)
+    busy = {name: [] for name in mods}
+    for i, name in enumerate(("auto", "auto + conv kernels f32", "auto + conv kernels f32",
+                              "auto")):
+        mod, state = mods[name]
+        busy[name].append(profile_device(
+            f"one SOT-2048 step, {name} (conv gate A/B, turn {i + 1})",
+            lambda: trainer.train_steps(mod, state, x_all, [2 * BATCH]), top=0))
+    print(f"[train] conv gate A/B, information only: device busy ms of one SOT-2048 step, "
+          + "; ".join(f"{name} {', '.join('not measured' if v is None else f'{v:.4f}' for v in vs)}"
+                      for name, vs in busy.items())
+          + f" | {card_line()}")
 
 
 def check_eval_512(cfg, dev):
@@ -1817,7 +1897,16 @@ def main() -> int:
                                 on=common + ("merge_coupling",) + gated),
         "SOT-512 gated": train(cfg512, dev, x_all, kernels=GATED, window=False,
                                on=common + ("merge_coupling",) + gated),
+        "SOT-2048 conv_bf16": train(cfg, dev, x_all, kernels=CONV_BF16, window=False,
+                                    on=common + ("merge_coupling", "ref_grad_beta"),
+                                    gates_name="auto+conv_bf16"),
     }
+    conv_launches = (runs["SOT-2048 gated"]["conv1d_forward"],
+                     runs["SOT-2048 gated"]["conv1d_weight"])
+    require(conv_launches == (4 * TRAIN_STEPS, 2 * TRAIN_STEPS),
+            f"the gated SOT-2048 steps launched kernels 10 / 11 {conv_launches} times, "
+            f"expected {4 * TRAIN_STEPS} / {2 * TRAIN_STEPS}")
+    conv_gate_ab(cfg, dev, x_all)
     # each kernel's count from the run whose main path it is on
     main_path = {"sot_plane_forward": "SOT-2048 default", "sot_plane_backward": "SOT-512 auto",
                  **{k: "SOT-2048 gated" for k in gated}}

@@ -10,9 +10,13 @@ preset name).
 Presets:
   * ``"default"`` — every gate off: the SOT loss on the banded plane
     (``plane``), PyTorch's convolutions and FFT
-  * ``"auto"`` — what ``cli train --kernels auto`` ships: ``ref`` above 512
-    bins, ``hybrid`` at or below (the committed A/Bs written out), the rest
-    off
+  * ``"auto"`` — the SOT routes that ``cli train --kernels auto`` ships:
+    ``ref`` above 512 bins, ``hybrid`` at or below (the committed A/Bs
+    written out), the rest off. It differs from the JAX package's shipped
+    recipe (``sot_tpu.kernel_gates.auto_gates()``) in one gate:
+    ``conv_bf16`` stays off. JAX turns ``SOT_TPU_CONV_BF16`` on after its
+    own 25k-step TPU verdict; the port needs an H100 verdict first. (The
+    CQT and synth kernels, gates in the JAX package, always run here.)
 
 Not mirrored: ``SOT_TPU_MERGE_ROWS`` and ``SOT_TPU_CONV_ROWS`` (TPU row
 tiles, which mean nothing to the CUDA kernels), and ``SOT_TPU_DFT_MATMUL``
@@ -47,6 +51,15 @@ class KernelGates:
     conv_dtype: torch.dtype = torch.bfloat16
     """``SOT_TPU_CONV_DTYPE``: the operand type of those kernels (f32
     accumulation); bf16 as in the JAX package, float32 for exact parity."""
+    conv_bf16: bool = False
+    """``SOT_TPU_CONV_BF16``: the encoder's conv stack in bf16, as Flax's
+    ``nn.Conv(dtype=bfloat16)`` computes it: input, weight and bias cast to
+    bf16, the conv with a bf16 output, the bias added after it in bf16, and
+    the leaky-ReLUs, the residual add and dropout in bf16, back to f32
+    after ``conv4b``. With ``conv`` as well, the k > 1 convs stay on kernels
+    B10/B11 with f32 outputs and only the 1x1 convs go bf16 (the JAX
+    package's precedence). Off in both presets until an H100 training
+    verdict."""
     stft_frontend: bool = False
     """``SOT_TPU_STFT_PALLAS``: the fused pad_end framing + window + real-DFT
     projection (kernel B9) for STFTs whose hop is a multiple of 128 and
@@ -58,6 +71,8 @@ class KernelGates:
         if self.w2_merge_small not in ("",) + W2_MODES:
             raise ValueError(f"w2_merge_small must be '' or one of {W2_MODES}, "
                              f"got {self.w2_merge_small!r}")
+        if not isinstance(self.conv_bf16, bool):
+            raise ValueError(f"conv_bf16 must be a bool, got {self.conv_bf16!r}")
         if self.conv_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"conv_dtype must be torch.bfloat16 or torch.float32, "
                              f"got {self.conv_dtype}")

@@ -14,7 +14,10 @@ Convolutions run in PyTorch's NCW layout. With ``conv_dtype`` (the
 ``conv`` kernel gate, ``SOT_TPU_CONV_PALLAS`` in the JAX package) the
 k > 1 'same' convolutions (``conv1``, ``prefilt*``) run on the hand-written
 kernels B10/B11 with operands rounded to that type (``KernelConv1d``,
-whose parameters and state-dict keys are those of ``nn.Conv1d``).
+whose parameters and state-dict keys are those of ``nn.Conv1d``). With
+``conv_bf16`` (``SOT_TPU_CONV_BF16``) the stack computes in bf16 as Flax's
+``nn.Conv(dtype=bfloat16)`` does (``Bf16Conv1d``); the k > 1 convs stay on
+the kernels when both are set, as in the JAX package.
 Parameters use PyTorch's default
 initialisation (U(+-1/sqrt(fan_in))), drawn from an optional explicit
 ``torch.Generator``. ~46K parameters in the paper configuration. Dropout
@@ -76,6 +79,20 @@ class KernelConv1d(nn.Conv1d):
         return conv1d_same(x, self.weight, self.compute_dtype) + self.bias[:, None]
 
 
+class Bf16Conv1d(nn.Conv1d):
+    """An ``nn.Conv1d`` computed as Flax's ``nn.Conv(dtype=bfloat16)``: the
+    input, weight and bias cast to bf16, the conv in bf16 with a bf16
+    output, then the bias added in bf16 as a separate op (Flax adds it after
+    ``conv_general_dilated``; a bias fused into the conv would round once
+    where Flax rounds twice). Parameters (f32), initialisation and
+    state-dict keys are the base class's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x.to(torch.bfloat16), self.weight.to(torch.bfloat16), None, self.stride,
+                     self.padding)
+        return y + self.bias.to(torch.bfloat16)[:, None]
+
+
 class ToeplitzLinear(nn.Module):
     """y[b, j] = sum_i x[b, i] * w[i - j + out - 1]."""
 
@@ -101,6 +118,8 @@ class PESTOEncoder(nn.Module):
     Input is [batch, n_bins_in] (a flattened (batch*time) of single-channel
     frames). ``conv_dtype``: None for PyTorch's convolutions, else the
     operand type of the hand-written kernels for the k > 1 convs.
+    ``conv_bf16``: the conv stack's activations in bf16 (``Bf16Conv1d`` for
+    every conv the kernels do not take).
     """
 
     def __init__(
@@ -118,6 +137,7 @@ class PESTOEncoder(nn.Module):
         p_dropout: float = 0.5,
         generator: Optional[torch.Generator] = None,
         conv_dtype: Optional[torch.dtype] = None,
+        conv_bf16: bool = False,
     ):
         super().__init__()
         self.n_bins_in = n_bins_in
@@ -133,19 +153,20 @@ class PESTOEncoder(nn.Module):
         pad = (kernel_size - 1) // 2
 
         self.layernorm = nn.LayerNorm([1, n_bins_in], eps=1e-5)
+        conv = Bf16Conv1d if conv_bf16 else nn.Conv1d
         if conv_dtype is None or kernel_size <= 1:
             def wide(cin, cout):
-                return nn.Conv1d(cin, cout, kernel_size, padding=pad)
+                return conv(cin, cout, kernel_size, padding=pad)
         else:
             def wide(cin, cout):
                 return KernelConv1d(cin, cout, kernel_size, conv_dtype)
         self.conv1 = wide(1, ch[0])
         self.prefilt = nn.ModuleList(wide(ch[0], ch[0]) for _ in range(n_prefilt_layers - 1))
-        self.conv2 = nn.Conv1d(ch[0], ch[1], 1)
-        self.conv3 = nn.Conv1d(ch[1], ch[2], 1)
-        self.conv4a = nn.Conv1d(ch[2], ch[3], 1)
+        self.conv2 = conv(ch[0], ch[1], 1)
+        self.conv3 = conv(ch[1], ch[2], 1)
+        self.conv4a = conv(ch[2], ch[3], 1)
         self.dropout = GeneratorDropout(p_dropout)
-        self.conv4b = nn.Conv1d(ch[3], ch[4], 1)
+        self.conv4b = conv(ch[3], ch[4], 1)
 
         feature_size = n_bins_in * ch[4]
         if "frequency" in self.output_splits:
@@ -173,10 +194,19 @@ class PESTOEncoder(nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 m.reset_parameters()
 
+    def _leaky_relu(self, y: torch.Tensor) -> torch.Tensor:
+        """Flax's ``leaky_relu``: on bf16 activations its slope is a weakly
+        typed scalar, rounded to bf16 (0.3 -> 0.30078125) before the
+        product."""
+        if y.dtype == torch.float32:
+            return F.leaky_relu(y, negative_slope=self.a_lrelu)
+        return torch.where(y >= 0, y, y * torch.tensor(self.a_lrelu, dtype=y.dtype,
+                                                       device=y.device))
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if x.ndim == 2:
             x = x[:, None, :]  # [batch, 1, bins] (NCW)
-        act = lambda y: F.leaky_relu(y, negative_slope=self.a_lrelu)  # noqa: E731
+        act = self._leaky_relu
 
         x = self.layernorm(x)
         x = act(self.conv1(x))
@@ -187,7 +217,7 @@ class PESTOEncoder(nn.Module):
         x = act(self.conv3(x))
         x = act(self.conv4a(x))
         x = self.dropout(x)
-        x = self.conv4b(x)
+        x = self.conv4b(x).float()
 
         feat = x.reshape(x.shape[0], -1)  # channel-major flatten
         outputs: Dict[str, torch.Tensor] = {}

@@ -23,13 +23,20 @@ f32.
     B11, as the JAX package's custom VJP computes them
 
 Bound on the H100: at the prefilter's shape (1024 rows, 40 -> 40, 285
-bins, k = 15) 14.0 GFLOP each, 0.209 ms at the f32 CUDA-core peak; SIMT
-kernels, see the source.
+bins, k = 15) 14.0 GFLOP each: 0.014 ms on the bf16 tensor cores, 0.085 ms
+at the 3xTF32 rate, under the bytes (~93 MB in f32, 0.028 ms). Both kernels
+are implicit GEMMs on the tensor cores (bf16 ``mma.sync``, or 3xTF32 for
+float32 operands: f32 accuracy); see the source for the design. Their work
+split comes from the shape and the card's SM count: ``fwd_blocks`` (B10's
+persistent blocks over (row, strip) items) and ``dw_chunks`` (B11's split
+over rows, summed in a fixed chunk order).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,9 +47,10 @@ from sot_tpu_torch.ops.kernels import _build
 launches = 0     # B10: forwards and the dx of backwards
 dw_launches = 0  # B11
 
-_MAX_K = 15
-_MAX_STRIP = 512      # bins per B10 block (its threads)
-ROWS_PER_CHUNK = 8    # rows per B11 partial
+MAX_K = 15    # odd k up to 15: each channel's taps padded to TAPS
+TAPS = 16
+MAX_CH = 40   # C_in and C_out
+STRIP = 288   # bins per work item (csrc/conv.cu)
 
 
 def round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -64,6 +72,37 @@ def conv1d_weight_plain(x: torch.Tensor, dy: torch.Tensor, k: int,
     shape = (dy.shape[1], x.shape[1], k)
     return torch.nn.grad.conv1d_weight(round_to(x, dtype), shape, round_to(dy, dtype),
                                        padding=(k - 1) // 2)
+
+
+def n_strips(width: int) -> int:
+    """Work items per row: strips of STRIP bins."""
+    return -(-width // STRIP)
+
+
+def fwd_blocks(rows: int, width: int, n_sm: int) -> int:
+    """B10's persistent blocks: one per SM (its shared memory holds one),
+    never more than the (row, strip) items."""
+    return min(rows * n_strips(width), n_sm)
+
+
+def dw_chunks(rows: int, n_sm: int) -> Tuple[int, int]:
+    """(rows per chunk, chunks) of B11's split over rows: at most one chunk
+    per SM, each summed by one block."""
+    per = -(-rows // n_sm)
+    return per, -(-rows // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_shape(what: str, rows: int, cin: int, cout: int, width: int, k: int) -> None:
+    if not (rows >= 1 and width >= 1 and 1 <= cin <= MAX_CH and 1 <= cout <= MAX_CH
+            and k % 2 == 1 and 1 <= k <= MAX_K):
+        raise ValueError(f"{what}: rows {rows}, C_in {cin}, C_out {cout}, width {width}, k {k}: "
+                         f"the kernel takes C_in, C_out in [1, {MAX_CH}], an odd k <= {MAX_K} "
+                         f"and non-empty rows")
 
 
 def _bind() -> ctypes.CDLL:
@@ -98,14 +137,15 @@ def conv1d_forward(x: torch.Tensor, weight: torch.Tensor,
     _check("conv1d_forward", x, weight, dtype)
     rows, cin, width = x.shape
     cout, wcin, k = weight.shape
-    if wcin != cin or k % 2 == 0 or not 1 <= k <= _MAX_K:
+    if wcin != cin:
         raise ValueError(f"conv1d_forward: x {tuple(x.shape)}, weight {tuple(weight.shape)}: "
-                         f"needs weight [C_out, C_in, odd k <= {_MAX_K}]")
+                         f"needs weight [C_out, C_in, k]")
+    _check_shape("conv1d_forward", rows, cin, cout, width, k)
     x, weight = x.contiguous(), weight.contiguous()
     y = torch.empty((rows, cout, width), dtype=torch.float32, device=x.device)
-    strip = min(-(-width // 32) * 32, _MAX_STRIP)
+    blocks = fwd_blocks(rows, width, _sm_count(x.device.index or 0))
     err = _bind().conv1d_same_fwd_f32(x.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, cin,
-                                      cout, width, k, strip, int(dtype == torch.bfloat16),
+                                      cout, width, k, blocks, int(dtype == torch.bfloat16),
                                       torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv1d_same_fwd_f32")
     global launches
@@ -122,14 +162,15 @@ def conv1d_weight(x: torch.Tensor, dy: torch.Tensor, k: int,
     _check("conv1d_weight", x, dy, dtype)
     rows, cin, width = x.shape
     cout = dy.shape[1]
-    if dy.shape != (rows, cout, width) or k % 2 == 0 or not 1 <= k <= _MAX_K:
+    if dy.shape != (rows, cout, width):
         raise ValueError(f"conv1d_weight: x {tuple(x.shape)}, dy {tuple(dy.shape)}, k {k}")
+    _check_shape("conv1d_weight", rows, cin, cout, width, k)
     x, dy = x.contiguous(), dy.contiguous()
-    chunks = -(-rows // ROWS_PER_CHUNK)
+    per, chunks = dw_chunks(rows, _sm_count(x.device.index or 0))
     partial = torch.empty((chunks, cout * cin * k), dtype=torch.float32, device=x.device)
     dw = torch.empty((cout, cin, k), dtype=torch.float32, device=x.device)
     err = _bind().conv1d_same_dw_f32(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                                     dw.data_ptr(), rows, cin, cout, width, k, ROWS_PER_CHUNK,
+                                     dw.data_ptr(), rows, cin, cout, width, k, per,
                                      int(dtype == torch.bfloat16),
                                      torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv1d_same_dw_f32")

@@ -82,6 +82,7 @@ def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
         n_bins_in=n_bins, output_size=n_bins, n_modes=cfg.n_modes,
         output_splits=("frequency", "weights"), harmonic=True,
         generator=generator, conv_dtype=gates.conv_dtype if gates.conv else None,
+        conv_bf16=gates.conv_bf16,
     ).to(device).eval()
     decoder = Sinusoidal(
         n_samples=cfg.n_samples, sample_rate=cfg.sample_rate,
@@ -373,15 +374,17 @@ def predict(mod: Modules, x, octave_correction: Optional[bool] = None
     """Deployment inference entry: pitch + harmonic amplitudes for audio x
     ([batch, n_samples], array or tensor), computed on ``mod.device``.
 
-    The inference-time octave and comb corrections need ``metrics.py``,
-    which is not ported yet: asking for either raises.
+    The inference-time octave and comb corrections need
+    ``metrics.octave_correct_pitch`` / ``comb_correct_pitch``, which are not
+    ported yet (ROADMAP A1): asking for either raises.
     """
     if octave_correction is None:
         octave_correction = mod.config.inference_octave_correction
     if mod.config.inference_comb_correction or octave_correction:
         raise NotImplementedError(
             "inference_comb_correction / inference_octave_correction need "
-            "metrics.py, which is not ported yet (ROADMAP)")
+            "metrics.octave_correct_pitch / comb_correct_pitch, which are not ported yet "
+            "(ROADMAP A1)")
     x = torch.as_tensor(x, dtype=torch.float32, device=mod.device)
     with torch.inference_mode():
         return forward(mod, x)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
+from sot_tpu_torch.device import set_precision_policy
 from sot_tpu_torch.ops.cqt import cqt_bank
 from sot_tpu_torch.ops.kernels import conv as kconv
 from sot_tpu_torch.ops.kernels import cqt as kcqt
@@ -455,3 +456,77 @@ def test_conv_kernels_and_gradients_on_card(cin, dtype):
     assert (kconv.launches, kconv.dw_launches) == (before[0] + 2, before[1] + 1)
     for g, r in zip(*outs):
         assert float((g - r).abs().max()) <= chip_smoke.CONV_LIMIT * float(r.abs().max())
+
+
+def _conv_case(b, w, cin, cout, k, seed, device="cuda"):
+    """Inputs on the card, with the port's precision policy: the plain
+    versions' cuDNN convolutions in full f32 (TF32 off)."""
+    set_precision_policy()
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, cin, w)).astype(np.float32)
+    weight = (rng.standard_normal((cout, cin, k)) / np.sqrt(k * cin)).astype(np.float32)
+    dy = rng.standard_normal((b, cout, w)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, weight, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin", [1, 40])
+def test_conv_kernels_bit_equal_and_float64_close_on_card(cin, dtype):
+    """At conv1's and the prefilter's shapes: two launches of each kernel on
+    the same inputs are bit-equal (no atomics, fixed-order sums), and against
+    a float64 conv of the same rounded operands each kernel's error is at
+    most 2x the plain f32 version's (chip_smoke's check_conv)."""
+    _need_cuda()
+    x, w, dy = _conv_case(1024, 285, cin, 40, 15, seed=cin)
+    outs = [(kconv.conv1d_forward(x, w, dtype), kconv.conv1d_weight(x, dy, 15, dtype))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    xr, wr, dyr = (kconv.round_to(t, dtype).double() for t in (x, w, dy))
+    y64 = torch.nn.functional.conv1d(xr, wr, padding=7)
+    dw64 = torch.nn.grad.conv1d_weight(xr, tuple(w.shape), dyr, padding=7)
+    plain = (kconv.conv1d_same_plain(x, w, dtype), kconv.conv1d_weight_plain(x, dy, 15, dtype))
+    for got, ref, ref64 in zip(outs[0], plain, (y64, dw64)):
+        assert chip_smoke.f64_rel(got, ref64) <= 2.0 * chip_smoke.f64_rel(ref, ref64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,w,cin,cout,k", [(4, 285, 1, 40, 15), (4, 285, 40, 40, 15),
+                                            (3, 64, 8, 16, 15), (8, 128, 4, 4, 15),
+                                            (5, 33, 3, 7, 5), (1, 285, 2, 3, 1),
+                                            (24, 285, 4, 8, 15), (2, 600, 40, 40, 15)])
+def test_conv_kernels_match_plain_at_every_shape_on_card(b, w, cin, cout, k, dtype):
+    """tests/test_conv_pallas.py's SHAPES, written out (that file imports JAX,
+    which the CUDA test command runs without), and a row wider than two strips:
+    forward, dx and dW within chip_smoke's CONV_LIMIT of the plain version,
+    one launch of B10 per forward or dx and of B11 per dW."""
+    _need_cuda()
+    x, wt, dy = _conv_case(b, w, cin, cout, k, seed=b + w + k)
+    wflip = wt.flip(-1).transpose(0, 1)
+    before = (kconv.launches, kconv.dw_launches)
+    got = (kconv.conv1d_forward(x, wt, dtype), kconv.conv1d_forward(dy, wflip, dtype),
+           kconv.conv1d_weight(x, dy, k, dtype))
+    ref = (kconv.conv1d_same_plain(x, wt, dtype), kconv.conv1d_same_plain(dy, wflip, dtype),
+           kconv.conv1d_weight_plain(x, dy, k, dtype))
+    torch.cuda.synchronize()
+    assert (kconv.launches, kconv.dw_launches) == (before[0] + 2, before[1] + 1)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= chip_smoke.CONV_LIMIT * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cin,cout", [(2, 4, 4), (17, 4, 4), (15, 41, 4), (15, 4, 41)])
+def test_conv_kernels_refuse_other_shapes_on_card(k, cin, cout):
+    """An even k, k > 15 or more than 40 channels raises and launches
+    nothing: no fallback to another path."""
+    _need_cuda()
+    x, wt, dy = _conv_case(2, 64, cin, cout, k, seed=0)
+    before = (kconv.launches, kconv.dw_launches)
+    with pytest.raises(ValueError, match="conv1d_forward"):
+        kconv.conv1d_forward(x, wt)
+    with pytest.raises(ValueError, match="conv1d_weight"):
+        kconv.conv1d_weight(x, dy, k)
+    assert (kconv.launches, kconv.dw_launches) == before
