@@ -17,10 +17,10 @@ Phases (any failure raises and the script exits non-zero):
                within max|d|/max|ref| <= 1e-4 (f32-accurate 3xTF32 vs f32,
                32768-term sums in another order), its error against a
                float64 product at most 2x the plain version's, two launches
-               bit-equal; synth [64, 16, 20] ->
-               [64, 4096] with envelopes bit-equal and audio within atol
-               2e-2, corr > 0.9999 (phase prefix summed in another order,
-               ~1 ulp at 1e4 rad)
+               bit-equal; synth [64, 16, 20] -> [64, 4096] with
+               envelopes and phase bit-equal, two launches bit-equal, audio
+               within atol 2e-2, corr > 0.9999 (and whether it is bit-equal
+               to the plain terms summed in k order)
   4. golden  — the trained SOT-2048 seed-42 weights and 64 clips of
                sot_tpu_torch/golden/: predict on the card against the stored
                JAX CPU outputs (pitch_hz max rel diff <= 1e-3, weights
@@ -36,9 +36,11 @@ Phases (any failure raises and the script exits non-zero):
                reference-convention beta gradient (max|d| <= 2e-5 *
                max|ref|, kinks included, share of bit-equal elements
                printed) on the SOT rows of 64 clips through the trained
-               model (1024 rows x 1025 bins); the synth backward from a
-               random audio cotangent at [64, 16, 20] (d amplitudes <= 1e-4
-               and d frequencies <= 1e-3 of their max); the banded-plane
+               model (1024 rows x 1025 bins), each timed (events and device);
+               the synth backward from a random audio cotangent at
+               [64, 16, 20] (d amplitudes <= 1e-4 and d frequencies <= 1e-3
+               of their max, two launches bit-equal, against a float64 VJP
+               at most 2x the plain f32 version's error); the banded-plane
                forward and backward (kernels 6 and 7, alpha_grads both ways,
                p = 2 and 3) bit for bit on dyadic rows at [1024, 258] and
                [1024, 1026], within PLANE_LIMITS on the SOT-512 golden's real
@@ -170,18 +172,33 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# FP32 operations per (lane, sample) of the synth: f-envelope 3 (sub, mul,
-# add), a-envelope 3 (mul, mul, add), Nyquist compare 1, phase increment 1,
-# prefix add 1, carry add 1, amplitude product 1, harmonic sum 1 = 12, plus a
-# full-range sinf counted as 20 (range reduction + polynomial, an estimate of
-# the CUDA math library's instruction count).
-SYNTH_FLOPS_PER_SAMPLE = 12 + 20
-# The backward per (lane, sample): envelopes 7 (as the forward, without the
-# harmonic sum), phase increment and prefix 2, sin and cos 40 (20 each, as
-# above), d_env_a 2 (product, Nyquist mask), d_phase 2, suffix sum 1,
-# d_env_f scale 1, the transposed taps to frames 9 (bilinear: sub, mul, add
-# and mul, add; window: two mul-adds).
-SYNTH_BWD_FLOPS_PER_SAMPLE = 7 + 2 + 40 + 2 + 2 + 1 + 1 + 9
+# H100 SXM instruction issue rates at the 1.98 GHz boost clock: 132 SMs x 128
+# FP32 lanes (33.5e12 lane-operations/s; the 67 TFLOP/s above counts an FMA
+# as two) and 132 x 64 FP64 lanes. A kernel of single FP32 instructions is
+# held to the first, its float64 adds to the second as well.
+PEAK_FP32_LANE_OPS = 33.5e12
+PEAK_FP64_LANE_OPS = 16.7e12
+# Operations of the synth forward that the function needs, per (lane,
+# sample), as (every sample, every sample up to the lane's last one below
+# Nyquist, every sample below Nyquist); the counts of each come from the
+# timed inputs (synth_sample_counts). FP32: the f-envelope 3 (sub, mul, add)
+# and the Nyquist compare 1 everywhere; the phase increment 1 up to the last
+# kept sample (later phases feed no sine); the a-envelope 3 (mul, mul, add),
+# a full-range sinf counted as 20 (range reduction + polynomial, an estimate
+# of the CUDA math library's instruction count), the amplitude product 1 and
+# the harmonic sum 1 where the sample is kept. float64: the prefix add up to
+# the last kept sample.
+SYNTH_FP32_OPS = (4, 1, 3 + 20 + 1 + 1)
+SYNTH_FP64_OPS = (0, 1, 0)
+# The backward, the same way. FP32: the f-envelope and compare 4 everywhere;
+# up to the last kept sample (d_env_f is 0 after it) the phase increment 1,
+# the d_env_f scale 1 and its bilinear taps to frames 5 (sub, mul, add and
+# mul, add); where kept the a-envelope 3, sin and cos 40 (20 each, as
+# above), d_env_a 1, d_phase 2 and its window taps to frames 4 (two
+# mul-adds). float64: the phase prefix and the d_phase suffix adds up to the
+# last kept sample.
+SYNTH_BWD_FP32_OPS = (4, 1 + 1 + 5, 3 + 40 + 1 + 2 + 4)
+SYNTH_BWD_FP64_OPS = (0, 2, 0)
 
 BATCH = 64
 N_REQUESTS = 4          # the smoke's requests: shapes, finiteness, launch counts
@@ -277,6 +294,17 @@ def roofline(flops: float, bytes_moved: float, peak: float = PEAK_FP32_FLOPS):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
+def issue_bound(fp32_ops: float, fp64_ops: float, bytes_moved: float):
+    """(bound_ms, bound_by, flop_bound_ms) of a kernel of single
+    instructions: the largest of all its instructions over the FP32 issue
+    rate, its float64 ones over the FP64 rate and the bytes over the memory
+    rate; beside it the FLOP-rate figure (every instruction over 67e12)."""
+    ops_s = max((fp32_ops + fp64_ops) / PEAK_FP32_LANE_OPS, fp64_ops / PEAK_FP64_LANE_OPS)
+    bytes_s = bytes_moved / PEAK_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes",
+            roofline(fp32_ops + fp64_ops, bytes_moved)[0])
+
+
 def device_ms(fn, inputs, kernel, per_call: int = 1) -> float:
     """Mean device time per call of the ``per_call`` distinct CUDA kernels
     whose name contains ``kernel`` (torch.profiler, TIMING_ITERS calls
@@ -291,9 +319,7 @@ def device_ms(fn, inputs, kernel, per_call: int = 1) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for args in inputs[:2]:
-        fn(*args)
-    torch.cuda.synchronize()
+    warm_up(fn, inputs)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(TIMING_ITERS):
@@ -319,6 +345,19 @@ def device_ms(fn, inputs, kernel, per_call: int = 1) -> float:
         print(f"[timing] the profiler gave {counts} of {TIMING_ITERS} records of the {kernel} "
               f"kernels: their device ms are means over those")
     return sum(statistics.fmean(v) for v in us.values()) / 1e3
+
+
+def warm_up(fn, inputs, seconds: float = 0.1) -> None:
+    """Call ``fn`` back to back, cycling through ``inputs``, for at least
+    TIMING_ITERS calls and ``seconds`` of wall time, so that a reading that
+    follows starts on a busy card (its clocks up) and not on an idle one."""
+    start, i = time.perf_counter(), 0
+    while i < TIMING_ITERS or time.perf_counter() - start < seconds:
+        fn(*inputs[i % len(inputs)])
+        i += 1
+        if i % TIMING_ITERS == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
 
 
 def median_ms(fn, inputs) -> float:
@@ -424,42 +463,87 @@ def check_cqt(cfg, dev, rng):
     }
 
 
+def synth_sample_counts(inputs, t: int, sr: int):
+    """(every, prefix, kept): lane-samples per call, the mean over the
+    timed ``inputs`` (controls first in each): all of them, those up to each
+    lane's last sample below Nyquist, and those below it (the kernels' own
+    keep test, env_f < the f32 Nyquist)."""
+    nyquist = ksynth._scalars(sr)[0]
+    counts = []
+    for args in inputs:
+        env_f = ksynth.synth_envelopes_plain(args[0], args[1], t, sr)[0]
+        keep = env_f < nyquist  # [B, T, K]
+        steps = torch.arange(1, t + 1, device=keep.device)[None, :, None]
+        prefix = torch.where(keep, steps, 0).amax(1)  # [B, K]: samples up to the last kept
+        counts.append((keep.numel(), int(prefix.sum()), int(keep.sum())))
+    return tuple(statistics.fmean(c[i] for c in counts) for i in range(3))
+
+
+def synth_bound(fp32_ops, fp64_ops, counts, bytes_moved: float):
+    """issue_bound of the operations (every, prefix, kept) per lane-sample
+    over the sample counts of synth_sample_counts."""
+    return issue_bound(float(sum(o * n for o, n in zip(fp32_ops, counts))),
+                       float(sum(o * n for o, n in zip(fp64_ops, counts))), bytes_moved)
+
+
 def check_synth(cfg, dev, rng):
     sr, t = cfg.sample_rate, cfg.n_samples
     amps, freqs = synth_controls(rng, dev, sr)
-    audio, env_f, env_a = ksynth.synth_render(amps, freqs, t, sr, debug_envelopes=True)
+    audio, env_f, env_a, phase = ksynth.synth_render(amps, freqs, t, sr, debug_envelopes=True)
+    again = ksynth.synth_render(amps, freqs, t, sr)
+    twice = ksynth.synth_render(amps, freqs, t, sr)
     ref_f, ref_a = ksynth.synth_envelopes_plain(amps, freqs, t, sr)
+    ref_phase = ksynth.synth_phase_plain(ref_f, sr)
     cpu_f, cpu_a = ksynth.synth_envelopes_plain(amps.cpu(), freqs.cpu(), t, sr)
     ref = ksynth.synth_render_plain(amps, freqs, t, sr)
+    # the plain terms summed in k order from +0, as the kernel sums them
+    terms = ref_a * torch.sin(ref_phase)
+    k_order = torch.zeros_like(audio)
+    for k in range(terms.shape[-1]):
+        k_order = k_order + terms[..., k]
     torch.cuda.synchronize()
     bit_equal = (torch.equal(env_f, ref_f) and torch.equal(env_a, ref_a)
                  and torch.equal(env_f.cpu(), cpu_f) and torch.equal(env_a.cpu(), cpu_a))
+    phase_equal = torch.equal(phase, ref_phase)
+    repeat_equal = torch.equal(again, twice) and torch.equal(again, audio)
     err = float((audio - ref).abs().max())
     corr = float(np.corrcoef(audio.cpu().numpy().ravel(), ref.cpu().numpy().ravel())[0, 1])
     print(f"[kernels] synth {tuple(amps.shape)} -> {tuple(audio.shape)}: envelopes "
-          f"bit-equal {bit_equal} (card plain and CPU plain), audio max|d| {err:.3e} "
-          f"(limit 2e-2), corr {corr:.7f} (limit 0.9999)")
+          f"bit-equal {bit_equal} (card plain and CPU plain), phase bit-equal {phase_equal}, "
+          f"two launches (and the debug launch) bit-equal {repeat_equal}, audio max|d| "
+          f"{err:.3e} (limit 2e-2), corr {corr:.7f} (limit 0.9999); audio bit-equal to the "
+          f"plain terms summed in k order on the card: {torch.equal(audio, k_order)} "
+          f"(max|d| {float((audio - k_order).abs().max()):.3e})")
     require(bit_equal, "synth envelopes are not bit-equal to the plain version")
+    require(phase_equal, "synth phase is not bit-equal to the plain version")
+    require(repeat_equal, "two synth launches disagree")
     require(err <= 2e-2 and corr > 0.9999, "synth audio disagrees")
     hz_above = float((freqs >= sr / 2).float().mean())
-    print(f"[kernels] synth: share of sinusoid-frames at/above Nyquist {hz_above:.3f}")
+    print(f"[kernels] synth: share of sinusoid-frames at/above Nyquist {hz_above:.3f}, "
+          f"of sinusoid-samples {float((ref_f >= sr / 2).float().mean()):.3f}")
 
     inputs = [synth_controls(rng, dev, sr) + (t, sr) for _ in range(TIMING_INPUTS)]
     ms = median_ms(ksynth.synth_render, inputs)
-    # the lane kernel and the harmonic sum
+    # the phase-totals launch and the forward launch
     dev_ms = device_ms(ksynth.synth_render, inputs, "synth_", 2)
     plain_ms = median_ms(ksynth.synth_render_plain, inputs)
     b, f, k = amps.shape
+    counts = synth_sample_counts(inputs, t, sr)
     # inputs: controls, the lo/frac tables and the window; output: the audio
-    bound_ms, bound_by = roofline(float(b * k * t * SYNTH_FLOPS_PER_SAMPLE),
-                                  4.0 * (2 * b * f * k + 2 * t + 2 * (t // f) + b * t))
-    print(f"[timing] synth_render: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) | {card_line()}")
+    bound_ms, bound_by, flop_ms = synth_bound(
+        SYNTH_FP32_OPS, SYNTH_FP64_OPS, counts,
+        4.0 * (2 * b * f * k + 2 * t + 2 * (t // f) + b * t))
+    print(f"[timing] synth_render: {ms:.4f} ms (device {dev_ms:.4f}, both launches), plain "
+          f"{plain_ms:.4f}, bound {bound_ms:.4f} ms ({bound_by}, issue rate, the work of the "
+          f"timed inputs: {counts[2] / counts[0]:.4f} of the lane-samples below Nyquist, "
+          f"{counts[1] / counts[0]:.4f} up to a lane's last one; at 67 TFLOP/s "
+          f"{flop_ms:.4f}) | {card_line()}")
     return {
         "name": "synth_render", "route": "cuda", "source": "sot_tpu_torch/csrc/synth.cu",
         "replaces": "sot_tpu/ops/pallas/synth.py:140",
         "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_flop_ms": flop_ms,
+        "library_ms": None,
     }
 
 
@@ -1080,7 +1164,10 @@ def check_merge(alpha, beta, gaug, make_inputs):
 
     inputs = [complements(*r) for r in make_inputs()]
     ms = median_ms(kmerge.coupling, inputs)
+    dev_ms = device_ms(kmerge.coupling, inputs, "coupling_fwd_kernel")
     plain_ms = median_ms(kmerge.coupling_plain, inputs)
+    print(f"[timing] merge coupling at alpha {tuple(alpha.shape)}: {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain_ms:.4f} | {card_line()}")
     rows, m = a.shape
     # reads a, b and x once, writes S; per element one binary search of
     # log2(m) compares, the two scans (add, mul-add) and the row sum (mul-add, mul)
@@ -1089,7 +1176,7 @@ def check_merge(alpha, beta, gaug, make_inputs):
     return {
         "name": "merge_coupling", "route": "cuda", "source": "sot_tpu_torch/csrc/merge.cu",
         "replaces": "sot_tpu/ops/pallas/merge.py:221",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -1112,7 +1199,10 @@ def check_refgrad(alpha, beta, gaug, make_inputs):
 
     inputs = [(al, be, ga, wbar) for al, be, ga in make_inputs()]
     ms = median_ms(krefgrad.ref_grad_beta, inputs)
+    dev_ms = device_ms(krefgrad.ref_grad_beta, inputs, "refgrad_kernel")
     plain_ms = median_ms(krefgrad.ref_grad_beta_plain, inputs)
+    print(f"[timing] refgrad at alpha {tuple(alpha.shape)}: {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain_ms:.4f} | {card_line()}")
     # reads alpha, beta, g and wbar once, writes the cotangent; per query two
     # binary searches of log2(n) compares and the closed form's ~45 operations
     flops = rows * n * (2 * math.log2(n) + 45)
@@ -1120,7 +1210,7 @@ def check_refgrad(alpha, beta, gaug, make_inputs):
     return {
         "name": "ref_grad_beta", "route": "cuda", "source": "sot_tpu_torch/csrc/refgrad.cu",
         "replaces": "sot_tpu/ops/pallas/refgrad.py:274",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
@@ -1387,20 +1477,62 @@ def plain_synth_vjp(amps, freqs, dout, t, sr):
     return torch.autograd.grad(ksynth.synth_render_plain(a, f, t, sr), (a, f), dout)
 
 
+def synth_taps64(n_frames: int, t: int, dev: torch.device):
+    """The transposed taps as float64 [T, F] matrices: d_freqs = M_f^T
+    d_env_f (bilinear: 1 - frac to lo, frac to lo + 1) and d_amps = M_a^T
+    d_env_a (window: w[hop + r] to frame j, w[r] to j + 1, the endpoint
+    frame folded into F - 1)."""
+    lo, frac, window = (x.cpu().numpy() for x in ksynth._tables(n_frames, t, dev)[:3])
+    hop, rows = t // n_frames, np.arange(t)
+    m_f, m_a = np.zeros((t, n_frames)), np.zeros((t, n_frames))
+    np.add.at(m_f, (rows, lo), 1.0 - frac.astype(np.float64))
+    np.add.at(m_f, (rows, lo + 1), frac.astype(np.float64))
+    j, r = rows // hop, rows % hop
+    np.add.at(m_a, (rows, j), window[hop + r].astype(np.float64))
+    np.add.at(m_a, (rows, np.minimum(j + 1, n_frames - 1)), window[r].astype(np.float64))
+    return torch.from_numpy(m_f).to(dev), torch.from_numpy(m_a).to(dev)
+
+
+def synth_vjp64(amps, freqs, dout, t, sr):
+    """The synth's VJP in float64 from the plain version's f32 envelopes and
+    phase (the inputs the kernel and autograd share): (d amplitudes,
+    d frequencies), [B, F, K]."""
+    env_f, env_a = ksynth.synth_envelopes_plain(amps, freqs, t, sr)
+    phase = ksynth.synth_phase_plain(env_f, sr).double()
+    nyquist, omega_scale = ksynth._scalars(sr)
+    g = dout.double()[:, :, None]
+    d_env_a = torch.where(env_f < nyquist, g * torch.sin(phase), 0.0)
+    d_phase = g * env_a.double() * torch.cos(phase)
+    d_env_f = d_phase.flip(1).cumsum(1).flip(1) * omega_scale
+    m_f, m_a = synth_taps64(amps.shape[1], t, amps.device)
+    return (torch.einsum("tj,btk->bjk", m_a, d_env_a),
+            torch.einsum("tj,btk->bjk", m_f, d_env_f))
+
+
 def check_synth_backward(cfg, dev, rng):
     sr, t = cfg.sample_rate, cfg.n_samples
     amps, freqs = synth_controls(rng, dev, sr)
     dout = torch.from_numpy(rng.standard_normal((BATCH, t)).astype(np.float32)).to(dev)
     d_amps, d_freqs = ksynth.synth_backward(amps, freqs, dout, t, sr)
+    again = ksynth.synth_backward(amps, freqs, dout, t, sr)
     ref_a, ref_f = plain_synth_vjp(amps, freqs, dout, t, sr)
+    ref64_a, ref64_f = synth_vjp64(amps, freqs, dout, t, sr)
     torch.cuda.synchronize()
     rel_a = float((d_amps - ref_a).abs().max() / ref_a.abs().max())
     rel_f = float((d_freqs - ref_f).abs().max() / ref_f.abs().max())
+    repeat_equal = torch.equal(d_amps, again[0]) and torch.equal(d_freqs, again[1])
+    e64 = {name: (f64_rel(got, r64), f64_rel(plain, r64)) for name, got, plain, r64 in (
+        ("d amplitudes", d_amps, ref_a, ref64_a), ("d frequencies", d_freqs, ref_f, ref64_f))}
     print(f"[kernels] synth backward {tuple(amps.shape)} from dout {tuple(dout.shape)}: "
           f"d amplitudes max|d|/max {rel_a:.3e} (limit 1e-4), d frequencies max|d|/max "
-          f"{rel_f:.3e} (limit 1e-3)")
+          f"{rel_f:.3e} (limit 1e-3); two launches bit-equal {repeat_equal}; against float64 "
+          + ", ".join(f"{n} kernel {k:.3e} vs plain f32 {p:.3e} (limit 2x)"
+                      for n, (k, p) in e64.items()))
     require(bool(torch.isfinite(d_amps).all() and torch.isfinite(d_freqs).all())
             and rel_a <= 1e-4 and rel_f <= 1e-3, "synth backward kernel disagrees")
+    require(repeat_equal, "two synth backward launches disagree")
+    require(all(k <= 2.0 * p for k, p in e64.values()),
+            "synth backward: error against float64 above 2x the plain version's")
 
     inputs = []
     for _ in range(TIMING_INPUTS):
@@ -1408,22 +1540,27 @@ def check_synth_backward(cfg, dev, rng):
         g = torch.from_numpy(rng.standard_normal((BATCH, t)).astype(np.float32)).to(dev)
         inputs.append((a, f, g, t, sr))
     ms = median_ms(ksynth.synth_backward, inputs)
-    dev_ms = device_ms(ksynth.synth_backward, inputs, "synth_lane_bwd_kernel")
+    dev_ms = device_ms(ksynth.synth_backward, inputs, "synth_bwd_kernel")
     plain_ms = median_ms(plain_synth_vjp, inputs)
     b, nf, k = amps.shape
+    counts = synth_sample_counts(inputs, t, sr)
     # inputs: controls, lo/frac tables, window, the frame ranges, dout;
     # outputs: the two control cotangents
-    bound_ms, bound_by = roofline(float(b * k * t * SYNTH_BWD_FLOPS_PER_SAMPLE),
-                                  4.0 * (2 * b * nf * k + 2 * t + 2 * (t // nf) + 2 * (nf + 1)
-                                         + b * t + 2 * b * nf * k))
+    bound_ms, bound_by, flop_ms = synth_bound(
+        SYNTH_BWD_FP32_OPS, SYNTH_BWD_FP64_OPS, counts,
+        4.0 * (2 * b * nf * k + 2 * t + 2 * (t // nf) + 2 * (nf + 1) + b * t + 2 * b * nf * k))
     print(f"[timing] synth_backward: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, "
-          f"bound {bound_ms:.4f} ms ({bound_by}) | {card_line()}")
+          f"bound {bound_ms:.4f} ms ({bound_by}, issue rate, the work of the timed inputs: "
+          f"{counts[2] / counts[0]:.4f} of the lane-samples below Nyquist, "
+          f"{counts[1] / counts[0]:.4f} up to a lane's last one; at 67 TFLOP/s "
+          f"{flop_ms:.4f}) | {card_line()}")
     return {
         "name": "synth_backward", "route": "cuda", "source": "sot_tpu_torch/csrc/synth.cu",
         "replaces": "sot_tpu/ops/pallas/synth.py:159",
         "max_abs_err": float((d_freqs - ref_f).abs().max()), "ms": ms, "device_ms": dev_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_flop_ms": flop_ms,
+        "library_ms": None,
     }
 
 

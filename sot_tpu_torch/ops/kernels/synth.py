@@ -8,20 +8,25 @@ source is ``sot_tpu_torch/csrc/synth.cu``.
 Frame-rate controls [B, F, K] (amplitudes already Nyquist-masked at frame
 rate, harmonic frequencies in Hz) -> audio [B, T]: bilinear f-envelope,
 hann-OLA a-envelope, per-sample Nyquist mask, unwrapped phase prefix,
-``env_a * sin(phase)`` summed over the K sinusoids.
+``env_a * sin(phase)`` summed over the K sinusoids in k order.
 
-Bound on the H100: operations (5.24 M lane-samples of envelope arithmetic,
-prefix sum and a full-range sinf at the serving shape [64, 16, 20] ->
-[64, 4096]; ~0.2 MB in, 1 MB out). One block per (clip, harmonic) lane with a
-block-wide scan; envelopes bit-equal to ``ops/resample.py``; a fixed-order
-harmonic sum; see the source for the design notes.
+Bound on the H100: operations (5.24 M lane-samples of f-envelope
+arithmetic and float64 prefix at the serving shape [64, 16, 20] ->
+[64, 4096], and a full-range sinf where the sample is below Nyquist; ~0.2
+MB in, 1 MB out). Two launches, each one block per (clip, 512-sample
+segment) of 8 warps, two per 128-sample chunk taking the even and the odd
+harmonics, four consecutive samples per lane: the float64 phase total of
+every chunk, then the harmonics' terms in shared memory, summed in k order
+per sample; envelopes bit-equal to ``ops/resample.py`` and the phase
+bit-equal to the plain version's float64 cumsum (the sum is exact for the
+model's controls); see the source for the design notes.
 
-The backward (an ``autograd.Function`` around the two kernels) gives d
+The backward (an ``autograd.Function`` around the kernels) gives d
 amplitudes and d frequencies [B, F, K] from the audio cotangent: the
 function autograd computes through ``synth_render_plain``, with the phase
-and its float64 suffix sum as there and frame sums in a fixed order
-(fp-close, not bit-equal; ROADMAP keeps its training verdict open). Bound:
-operations, as the forward.
+as there, its float64 suffix sum in a fixed order and frame sums in a fixed
+order (fp-close, not bit-equal; ROADMAP keeps its training verdict open).
+One block per (clip, harmonic); bound: operations, as the forward.
 
 On a CPU tensor ``synth_render`` runs ``synth_render_plain`` (autograd
 differentiates it); on a CUDA tensor it launches the kernels or raises.
@@ -40,13 +45,15 @@ import torch
 from sot_tpu_torch.ops.kernels import _build
 from sot_tpu_torch.ops.oscillator import oscillator_bank, remove_above_nyquist
 from sot_tpu_torch.ops.resample import linear_taps, resample
+from sot_tpu_torch.ops.scan import prefix_sum
 from sot_tpu_torch.ops.windows import hann_window
 
 # Launches of the CUDA kernels (plain-version calls are not counted).
 launches = 0           # forward
 backward_launches = 0  # backward
 
-_THREADS = 256      # csrc/synth.cu block size: n_samples must be a multiple
+_SAMPLE_MULTIPLE = 256  # n_samples must be a multiple (csrc/synth.cu tiles 128-sample chunks)
+_CHUNK = 128            # samples of one warp of csrc/synth.cu
 _MAX_SAMPLES = 8192
 _MAX_FRAMES = 128
 
@@ -58,6 +65,13 @@ def synth_envelopes_plain(amplitudes: torch.Tensor, frequencies: torch.Tensor,
     env_a = resample(amplitudes, n_samples, method="window", add_endpoint=True)
     env_f = resample(frequencies, n_samples)
     return env_f, remove_above_nyquist(env_f, env_a, sample_rate)
+
+
+def synth_phase_plain(env_f: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """The unwrapped phase [B, T, K] of ``oscillator_bank`` for the
+    sample-rate frequency envelope: f32 increments, a float64 prefix sum,
+    each phase rounded once."""
+    return prefix_sum(env_f * (2.0 * math.pi / float(sample_rate)), axis=1)
 
 
 def synth_render_plain(amplitudes: torch.Tensor, frequencies: torch.Tensor,
@@ -83,7 +97,7 @@ def _tables(n_frames: int, n_samples: int, device: torch.device):
 def _bind() -> ctypes.CDLL:
     lib = _build.load("synth")
     fn = lib.synth_forward_f32
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.synth_backward_f32
@@ -121,9 +135,11 @@ def synth_render(amplitudes: torch.Tensor, frequencies: torch.Tensor, n_samples:
                  sample_rate: int, debug_envelopes: bool = False):
     """[B, F, K] controls -> [B, n_samples] audio, differentiable in both.
 
-    With ``debug_envelopes`` (CUDA only, no autograd) also returns the
-    kernel's (env_f, env_a), each [B, T, K], for bit-equality checks against
-    ``synth_envelopes_plain``.
+    With ``debug_envelopes`` (CUDA only, no autograd) returns ``(audio,
+    env_f, env_a, phase)``: the kernel's envelopes and rounded phase, each
+    [B, T, K], for bit-equality checks against ``synth_envelopes_plain`` and
+    ``synth_phase_plain`` (a separate instantiation of the kernel that
+    writes them; the normal path writes no debug tensors).
     """
     if amplitudes.device.type == "cpu":
         if debug_envelopes:
@@ -147,12 +163,14 @@ def _check(amplitudes: torch.Tensor, frequencies: torch.Tensor, n_samples: int) 
     if not (amplitudes.is_contiguous() and frequencies.is_contiguous()):
         raise ValueError("synth_render: controls must be contiguous")
     batch, n_frames, n_sin = amplitudes.shape
-    if (n_samples % _THREADS or n_samples > _MAX_SAMPLES or n_frames > _MAX_FRAMES
-            or n_frames < 2 or n_samples % n_frames):
+    if (n_samples <= 0 or n_samples % _SAMPLE_MULTIPLE or n_samples > _MAX_SAMPLES
+            or n_frames > _MAX_FRAMES or n_frames < 2 or n_samples % n_frames
+            or batch < 1 or n_sin < 1):
         raise ValueError(
-            f"synth_render: kernel covers n_samples % {_THREADS} == 0, n_samples <= "
-            f"{_MAX_SAMPLES}, 2 <= n_frames <= {_MAX_FRAMES} and n_frames | n_samples; "
-            f"got n_samples={n_samples}, n_frames={n_frames}")
+            f"synth_render: kernel covers n_samples % {_SAMPLE_MULTIPLE} == 0, 0 < n_samples "
+            f"<= {_MAX_SAMPLES}, 2 <= n_frames <= {_MAX_FRAMES}, n_frames | n_samples, "
+            f"batch >= 1 and K >= 1; got n_samples={n_samples}, controls "
+            f"{tuple(amplitudes.shape)}")
 
 
 def _launch_forward(amplitudes, frequencies, n_samples, sample_rate, debug_envelopes):
@@ -160,25 +178,24 @@ def _launch_forward(amplitudes, frequencies, n_samples, sample_rate, debug_envel
     batch, n_frames, n_sin = amplitudes.shape
     lo, frac, window, _, _ = _tables(n_frames, n_samples, dev)
     lib = _bind()
-    contrib = torch.empty((batch, n_sin, n_samples), dtype=torch.float32, device=dev)
+    totals = torch.empty((batch, n_sin, n_samples // _CHUNK), dtype=torch.float64, device=dev)
     audio = torch.empty((batch, n_samples), dtype=torch.float32, device=dev)
-    env_f = env_a = None
+    dbg = [None, None, None]
     if debug_envelopes:
-        env_f = torch.empty_like(contrib)
-        env_a = torch.empty_like(contrib)
+        dbg = [torch.empty((batch, n_sin, n_samples), dtype=torch.float32, device=dev)
+               for _ in range(3)]
     nyquist, omega_scale = _scalars(sample_rate)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.synth_forward_f32(
         amplitudes.data_ptr(), frequencies.data_ptr(), lo.data_ptr(), frac.data_ptr(),
-        window.data_ptr(), contrib.data_ptr(), audio.data_ptr(),
-        env_f.data_ptr() if debug_envelopes else None,
-        env_a.data_ptr() if debug_envelopes else None,
+        window.data_ptr(), totals.data_ptr(), audio.data_ptr(),
+        *(d.data_ptr() if d is not None else None for d in dbg),
         batch, n_frames, n_sin, n_samples, nyquist, omega_scale, stream)
     _build.check(err, "synth_forward_f32")
     global launches
     launches += 1
     if debug_envelopes:
-        return audio, env_f.transpose(1, 2), env_a.transpose(1, 2)
+        return (audio,) + tuple(d.transpose(1, 2) for d in dbg)
     return audio
 
 
@@ -199,11 +216,12 @@ def synth_backward(amplitudes: torch.Tensor, frequencies: torch.Tensor,
     d_amps = torch.empty_like(amplitudes)
     d_freqs = torch.empty_like(frequencies)
     nyquist, omega_scale = _scalars(sample_rate)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.synth_backward_f32(
         amplitudes.data_ptr(), frequencies.data_ptr(), lo.data_ptr(), frac.data_ptr(),
         window.data_ptr(), lo_start.data_ptr(), hi_start.data_ptr(), dout.data_ptr(),
         d_amps.data_ptr(), d_freqs.data_ptr(), batch, n_frames, n_sin, n_samples,
-        nyquist, omega_scale, torch.cuda.current_stream(dev).cuda_stream)
+        nyquist, omega_scale, stream)
     _build.check(err, "synth_backward_f32")
     global backward_launches
     backward_launches += 1

@@ -202,14 +202,101 @@ def test_cqt_kernel_matches_plain_on_card(batch):
 def test_synth_kernel_matches_plain_on_card():
     _need_cuda()
     amps, freqs = _synth_inputs("cuda", batch=64)
-    audio, env_f, env_a = ksynth.synth_render(amps, freqs, 4096, 16000,
-                                              debug_envelopes=True)
+    audio, env_f, env_a, phase = ksynth.synth_render(amps, freqs, 4096, 16000,
+                                                     debug_envelopes=True)
     ref_f, ref_a = ksynth.synth_envelopes_plain(amps, freqs, 4096, 16000)
     ref = ksynth.synth_render_plain(amps, freqs, 4096, 16000)
     torch.cuda.synchronize()
     assert torch.equal(env_f, ref_f) and torch.equal(env_a, ref_a)
     assert float((audio - ref).abs().max()) <= 2e-2
     assert np.corrcoef(audio.cpu().numpy().ravel(), ref.cpu().numpy().ravel())[0, 1] > 0.9999
+
+
+@pytest.mark.cuda
+def test_synth_kernel_phase_bit_equal_to_plain_on_card():
+    """The kernel's rounded phase (split into chunks and lanes) against the
+    plain float64 cumsum, and the normal launch's audio against the debug
+    launch's."""
+    _need_cuda()
+    amps, freqs = _synth_inputs("cuda", batch=64)
+    audio, env_f, _, phase = ksynth.synth_render(amps, freqs, 4096, 16000,
+                                                 debug_envelopes=True)
+    plain = ksynth.synth_phase_plain(ksynth.synth_envelopes_plain(amps, freqs, 4096, 16000)[0],
+                                     16000)
+    torch.cuda.synchronize()
+    assert torch.equal(phase, plain)
+    assert torch.equal(audio, ksynth.synth_render(amps, freqs, 4096, 16000))
+
+
+@pytest.mark.cuda
+def test_synth_kernels_bit_equal_across_launches_on_card():
+    _need_cuda()
+    amps, freqs = _synth_inputs("cuda", batch=64)
+    dout = torch.randn(64, 4096, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    first = ksynth.synth_render(amps, freqs, 4096, 16000)
+    again = ksynth.synth_render(amps, freqs, 4096, 16000)
+    grads = ksynth.synth_backward(amps, freqs, dout, 4096, 16000)
+    grads_again = ksynth.synth_backward(amps, freqs, dout, 4096, 16000)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads_again))
+
+
+# (batch, n_frames, n_samples, K): every n_frames of 2-128, n_samples of
+# 256-8192 (hops 2-3072, part-filled last segments and backward rows), K of
+# 1, 3, 20 and 33 (two harmonic tiles), batch 1 and 64
+SYNTH_SWEEP = [(1, 2, 256, 1), (64, 8, 1024, 3), (64, 16, 4096, 20), (1, 32, 8192, 33),
+               (64, 128, 8192, 20), (1, 128, 256, 3), (64, 2, 6144, 33), (1, 16, 1792, 20),
+               (64, 32, 768, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_frames,n_samples,n_sin", SYNTH_SWEEP)
+def test_synth_kernels_shape_sweep_on_card(batch, n_frames, n_samples, n_sin):
+    """Envelopes and phase bit-equal, audio within chip_smoke's limits, the
+    backward within 1e-4 / 1e-3 of autograd through the plain version."""
+    _need_cuda()
+    rng = np.random.default_rng(n_samples + n_sin)
+    f0 = rng.uniform(40.0, 2000.0, (batch, n_frames, 1)).astype(np.float32)
+    freqs = f0 * np.arange(1, n_sin + 1, dtype=np.float32)
+    amps = np.where(freqs >= 8000.0, 0.0,
+                    rng.uniform(0.0, 2.0, (batch, n_frames, n_sin))).astype(np.float32)
+    amps, freqs = torch.from_numpy(amps).cuda(), torch.from_numpy(freqs).cuda()
+    dout = torch.from_numpy(rng.standard_normal((batch, n_samples)).astype(np.float32)).cuda()
+    audio, env_f, env_a, phase = ksynth.synth_render(amps, freqs, n_samples, 16000,
+                                                     debug_envelopes=True)
+    ref_f, ref_a = ksynth.synth_envelopes_plain(amps, freqs, n_samples, 16000)
+    ref = ksynth.synth_render_plain(amps, freqs, n_samples, 16000)
+    d_amps, d_freqs = ksynth.synth_backward(amps, freqs, dout, n_samples, 16000)
+    a = amps.clone().requires_grad_(True)
+    f = freqs.clone().requires_grad_(True)
+    ref_da, ref_df = torch.autograd.grad(ksynth.synth_render_plain(a, f, n_samples, 16000),
+                                         (a, f), dout)
+    torch.cuda.synchronize()
+    assert torch.equal(env_f, ref_f) and torch.equal(env_a, ref_a)
+    assert torch.equal(phase, ksynth.synth_phase_plain(ref_f, 16000))
+    assert float((audio - ref).abs().max()) <= 2e-2
+    assert np.corrcoef(audio.cpu().numpy().ravel(), ref.cpu().numpy().ravel())[0, 1] > 0.9999
+    assert float((d_amps - ref_da).abs().max() / ref_da.abs().max()) <= 1e-4
+    assert float((d_freqs - ref_df).abs().max() / ref_df.abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_frames,n_samples,n_sin", [
+    (2, 16, 4000, 20), (2, 16, 8448, 20), (2, 1, 4096, 20), (2, 256, 8192, 20),
+    (2, 24, 4096, 20), (2, 16, 4096, 0), (0, 16, 4096, 20)])
+def test_synth_kernels_raise_outside_their_shapes_on_card(batch, n_frames, n_samples, n_sin):
+    """n_samples not a multiple of 256 or above 8192, n_frames outside 2-128
+    or not dividing n_samples, K or batch 0: a ValueError before any launch."""
+    _need_cuda()
+    amps = torch.ones((batch, n_frames, n_sin), device="cuda")
+    dout = torch.zeros((batch, n_samples), device="cuda")
+    before = (ksynth.launches, ksynth.backward_launches)
+    with pytest.raises(ValueError, match="synth_render"):
+        ksynth.synth_render(amps, amps * 100.0, n_samples, 16000)
+    with pytest.raises(ValueError, match="synth_render"):
+        ksynth.synth_backward(amps, amps * 100.0, dout, n_samples, 16000)
+    assert (ksynth.launches, ksynth.backward_launches) == before
 
 
 def _sot_inputs(device, rows=1024, n=1025, seed=0):

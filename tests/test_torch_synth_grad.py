@@ -2,18 +2,19 @@
 package's ``Sinusoidal``, and the B3 backward kernel's algorithm against
 autograd of the plain version.
 
-The CUDA backward kernel (``csrc/synth.cu``: ``synth_lane_bwd_kernel``)
-runs only on the card; here a numpy transcription of its algorithm (the
-same tables, the same float64 phase and suffix sum, the same per-frame
-ranges and window taps) is held against autograd of ``synth_render_plain``,
-so the transposition the kernel writes out is checked on the CPU.
+The CUDA backward kernel (``csrc/synth.cu``: ``synth_bwd_kernel``) runs
+only on the card; here a numpy transcription of its algorithm (the same
+tables, the same float64 phase, its suffix sum in the kernel's order, the
+same per-frame ranges and window taps) is held against autograd of
+``synth_render_plain``, so the transposition the kernel writes out is
+checked on the CPU.
 
 Tolerances: against JAX, d amplitudes and d frequencies within 5e-3 of
 their max (the JAX phase is a blocked f32 prefix sum and the port's a
 float64 one; at ~1e4 rad they differ by ~1e-3 rad, which cos/sin carry into
 every sample's cotangent: measured up to 1.7e-3). Kernel transcription
 against autograd: 1e-5 of the max (the same phase; only the order of the
-per-frame sums differs).
+float64 suffix and of the per-frame sums differs).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from sot_tpu_torch.ops.kernels import synth as ksynth  # noqa: E402
 from sot_tpu_torch.ops.numerics import exp_sigmoid  # noqa: E402
 from sot_tpu_torch.ops.resample import linear_taps  # noqa: E402
 from tests._torch_parity import rel_max_err  # noqa: E402
+from tests.test_torch_synth_plan import backward_transcription  # noqa: E402
 
 SR, T = 16000, 4096
 
@@ -99,38 +101,10 @@ def test_synth_gradients_match_jax_with_and_without_pallas(monkeypatch, gate):
 
 
 def _kernel_backward_transcription(amps, freqs, dout):
-    """csrc/synth.cu ``synth_lane_bwd_kernel`` in numpy: (d amplitudes,
-    d frequencies), each [B, F, K]."""
-    b, n_frames, k = amps.shape
-    lo, frac, window, lo_start, hi_start = (t.numpy() for t in ksynth._tables(
-        n_frames, T, torch.device("cpu")))
-    nyquist, omega_scale = (np.float32(v) for v in ksynth._scalars(SR))
-    env_f, env_a = (t.numpy() for t in ksynth.synth_envelopes_plain(
-        torch.from_numpy(amps), torch.from_numpy(freqs), T, SR))  # [B, T, K]
-    hop = T // n_frames
-    d_amps = np.zeros_like(amps)
-    d_freqs = np.zeros_like(freqs)
-    for bi in range(b):
-        g = dout[bi][:, None]
-        inc = (env_f[bi] * omega_scale).astype(np.float32)
-        phase = np.cumsum(inc.astype(np.float64), axis=0).astype(np.float32)
-        s, c = np.sin(phase), np.cos(phase)
-        da = np.where(env_f[bi] >= nyquist, np.float32(0), (g * s).astype(np.float32))
-        dph = ((g * env_a[bi]).astype(np.float32) * c).astype(np.float32)
-        suf = np.cumsum(dph[::-1].astype(np.float64), axis=0)[::-1].astype(np.float32)
-        df = (suf * omega_scale).astype(np.float32)
-        for f in range(n_frames):
-            lo_r = slice(lo_start[f], lo_start[f + 1])
-            hi_r = slice(hi_start[f], hi_start[f + 1])
-            d_freqs[bi, f] = ((df[lo_r] - frac[lo_r, None] * df[lo_r]).sum(0)
-                              + (frac[hi_r, None] * df[hi_r]).sum(0))
-            acc = (window[hop:, None] * da[f * hop:(f + 1) * hop]).sum(0)
-            if f > 0:
-                acc += (window[:hop, None] * da[(f - 1) * hop:f * hop]).sum(0)
-            if f == n_frames - 1:
-                acc += (window[:hop, None] * da[f * hop:(f + 1) * hop]).sum(0)
-            d_amps[bi, f] = acc
-    return d_amps, d_freqs
+    """csrc/synth.cu ``synth_bwd_kernel`` in numpy: (d amplitudes,
+    d frequencies), each [B, F, K]; the kernel's runs, float64 suffix order
+    and frame sums (``tests/test_torch_synth_plan.py``)."""
+    return backward_transcription(amps, freqs, dout, T)
 
 
 def test_backward_kernel_algorithm_matches_autograd_of_plain():
