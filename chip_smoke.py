@@ -5,7 +5,7 @@ and evaluation, and the gated train step (the ``full`` merge route, the
 STFT frontend and the conv kernels: ``KernelGates(w2_merge="full",
 conv=True, stft_frontend=True)``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab-parent PATH/plane.cu]
 
 Phases (any failure raises and the script exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
@@ -44,13 +44,20 @@ Phases (any failure raises and the script exits non-zero):
                forward and backward (kernels 6 and 7, alpha_grads both ways,
                p = 2 and 3) bit for bit on dyadic rows at [1024, 258] and
                [1024, 1026], within PLANE_LIMITS on the SOT-512 golden's real
-               rows, random sorted rows at [1024, 1026] and unsorted rows;
-               on the golden's rows kernel 7's beta cotangent against kernel
-               5's and JAX's _pallas_bwd, and the W of kernels 4 and 6
-               against JAX's (SOT_ROW_LIMITS); [timing] of kernels 4-7 at
-               [1024, 258] and 6-7 at [1024, 1026] (CUDA events and the
-               profiler's device time), the A/B of the two SOT-512 backward
-               routes (kernel 5 against kernel 7); the gated path's kernels:
+               rows, random sorted rows at [1024, 1026], unsorted rows and
+               stress rows (a spike against a spread spectrum both ways,
+               beta = alpha, a zero-mass stretch), two launches bit-equal on
+               the real rows of both loss shapes; on the golden's rows kernel
+               7's beta cotangent against kernel 5's and JAX's _pallas_bwd,
+               and the W of kernels 4 and 6 against JAX's (SOT_ROW_LIMITS);
+               [timing] of kernels 4-7 at [1024, 258] and 6-7 at [1024, 1026]
+               (CUDA events and the profiler's device time; the mu > 0 cells
+               per row, the rows on the full-scan path and the walk's slice
+               balance), the A/B of the two SOT-512 backward routes (kernel
+               5 against kernel 7); with --ab-parent PATH, kernels 6 and 7
+               built from another plane.cu (an earlier commit's) timed
+               against this one in turns, old, new, new, old; the gated
+               path's kernels:
                the coupling gradient (kernel 8, alpha_grads both ways) on
                the real SOT rows within COUPLING_GRAD_LIMIT, bit for bit on
                dyadic tie rows, on unsorted rows; the STFT frontend (kernel
@@ -101,8 +108,10 @@ Phases (any failure raises and the script exits non-zero):
                kernels 4 + 5) and SOT-512 (auto: hybrid, kernels 4 + 7) 4
                steps then a window of 32 more (median step ms, train
                frames/s over the summed step time) and a torch.profiler
-               breakdown of one more; SOT-512-LogF (hybrid) and SOT-2048
-               under kernels="default" (plane, kernels 6 + 7) 4 steps each;
+               breakdown of one more; SOT-512-LogF (hybrid) 4 steps; SOT-2048
+               under kernels="default" (plane, kernels 6 + 7 at [1024, 1026])
+               4 steps, a window of 32 and a profile; SOT-512 under
+               kernels="default" (kernels 6 + 7 at [1024, 258]) 4 steps;
                SOT-2048 under GATED (kernels 4 and 8-11, refgrad and the
                plane kernels at 0) 4 steps, a window of 32 and a profile
                (kernel 10 launched 16 times and kernel 11 8 times in the 4
@@ -311,16 +320,17 @@ def device_ms(fn, inputs, kernel, per_call: int = 1) -> float:
     cycling through ``inputs``): the kernels alone, without the host's launch
     gap that a CUDA-event time of a microsecond kernel includes. The sum of
     each kernel's mean over the records the profiler gave: it can drop
-    records (an H100 run saw 25 of 40), so a profile that holds fewer than
-    half of some kernel's launches is taken again, up to three times. With
+    records (an H100 run saw 25 of 40, another 8 of 20 three times running),
+    so a profile that holds fewer than half of some kernel's launches is
+    taken again, up to five times. With
     ``kernel`` None (a library call whose kernels are not ours to name):
     every device record, summed over the calls, from a profile that holds at
-    least one record per call (NaN, printed, if three profiles do not)."""
+    least one record per call (NaN, printed, if five profiles do not)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     warm_up(fn, inputs)
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(TIMING_ITERS):
                 fn(*inputs[i % len(inputs)])
@@ -336,7 +346,7 @@ def device_ms(fn, inputs, kernel, per_call: int = 1) -> float:
             break
     if kernel is None:
         print(f"[timing] the profiler gave {sum(counts)} device records for {TIMING_ITERS} "
-              f"library calls in three tries: their device ms not measured")
+              f"library calls in five tries: their device ms not measured")
         return float("nan")
     require(len(us) == per_call and counts[0] >= TIMING_ITERS // 2,
             f"the profiler saw {counts} launches of {len(us)} {kernel} kernels, "
@@ -1259,6 +1269,26 @@ def random_plane_rows(rng: np.random.Generator, rows: int, n: int, sort: bool = 
     return alpha, beta, gaug, wbar
 
 
+def stress_plane_rows(rows: int, n: int, seed: int = 0):
+    """(alpha, beta, g, wbar): rows cycling through four stress kinds on a
+    uniform grid: beta a spike against a spread alpha (one column spans the
+    whole other side), the mirror (one row does), beta = alpha (every cell
+    with mu > 0 a tie) and alpha with a zero-mass stretch over its middle
+    half (a run of empty intervals)."""
+    rng = np.random.default_rng(seed)
+    spread = np.cumsum(rng.random((rows, n)) + 0.05, -1)
+    spread /= spread[:, -1:]
+    spike = np.broadcast_to(np.where(np.arange(n) >= n // 2, 1.0, 0.0), (rows, n))
+    flat = spread.copy()
+    flat[:, n // 4: 3 * n // 4] = flat[:, n // 4: n // 4 + 1]
+    kinds = [(spread, spike), (spike, spread), (spread, spread), (flat, spread)]
+    alpha = np.stack([kinds[r % 4][0][r] for r in range(rows)])
+    beta = np.stack([kinds[r % 4][1][r] for r in range(rows)])
+    g = np.linspace(0.0, 1.0, n)
+    wbar = rng.random(rows) + 0.5
+    return tuple(a.astype(np.float32) for a in (alpha, beta, g, wbar))
+
+
 def plane_outputs(alpha, beta, g, wbar, p, fwd, bwd):
     """(W, dalpha, dbeta with alpha_grads, dbeta without) of one pair of
     plane functions."""
@@ -1312,37 +1342,61 @@ def route_grad_beta(alpha, beta, gaug, wbar, route):
     return kplane.sot_plane_backward(alpha, beta, gaug, 2.0, wbar, False)[1]
 
 
-def plane_cells(alpha, beta):
-    """Cells the kernels' bands visit per pass, from these inputs: for each
-    column j, #{alpha < beta_j} + 1 (capped at n) less #{alpha <= delta_j},
-    and the mirror for the alpha pass."""
-    n = alpha.shape[1]
-
-    def visits(side, other):
-        prev = torch.nn.functional.pad(side, (1, 0))[:, :-1].contiguous()
-        lo = torch.searchsorted(other, prev, right=True)
-        hi = torch.clamp(torch.searchsorted(other, side, right=False) + 1, max=n)
-        return float(torch.clamp(hi - lo, min=0).sum())
-
-    return visits(beta, alpha), visits(alpha, beta)
-
-
-def plane_bound(alpha, beta, backward: bool, alpha_grads: bool = False):
-    """(bound_ms, bound_by) of kernel 6 or 7 on these inputs: each input read
-    once, each output written once; per visited cell ~8 operations forward
-    (min, max, sub, relu, grid sub, power, mul, add) or ~14 backward (the
-    forward's and the tie weights, two products and two sums), per column
-    two binary searches of log2(n) compares."""
+def plane_walk_stats(alpha, beta):
+    """What kernels 6 and 7 do on these rows: the cells with mu > 0 (the
+    function's work; on sorted rows they lie on the merge path, on the rows
+    that are not sorted counted densely), the rows on the full-scan path,
+    the walk's positions (a row's nonempty intervals of alpha and beta, plus
+    one: their sum, median and max over the rows),
+    the most mu > 0 cells one thread's slice of them holds and how far that
+    lies above its row's even share, ceil(cells / THREADS_PER_ROW)."""
     rows, n = alpha.shape
-    beta_cells, alpha_cells = plane_cells(alpha, beta)
-    searches = 2 * rows * n * math.log2(n)
+    full = kplane.full_scan_rows(alpha, beta)
+    prev = [torch.nn.functional.pad(x, (1, 0))[:, :-1] for x in (alpha, beta)]
+    ne_a, ne_b = alpha > prev[0], beta > prev[1]
+    i, j = kplane.staircase(alpha, beta)
+    inside = (i < n) & (j < n)
+    ic, jc = i.clamp(max=n - 1), j.clamp(max=n - 1)
+    a, c = alpha.gather(1, ic), prev[0].gather(1, ic)
+    b, d = beta.gather(1, jc), prev[1].gather(1, jc)
+    mu = inside & (torch.minimum(a, b) > torch.maximum(c, d)) & ~full[:, None]
+    # a cell's place in the walk: the nonempty rows and columns before it
+    rank_a = torch.cumsum(ne_a.long(), 1) - ne_a.long()
+    rank_b = torch.cumsum(ne_b.long(), 1) - ne_b.long()
+    pos = rank_a.gather(1, ic) + rank_b.gather(1, jc)
+    npos = ne_a.sum(1) + ne_b.sum(1) + 1
+    tpr = kplane.THREADS_PER_ROW
+    length = (npos + tpr - 1) // tpr
+    per_slice = torch.zeros((rows, tpr), dtype=torch.long, device=alpha.device)
+    per_slice.scatter_add_(1, torch.where(mu, pos // length[:, None], 0), mu.long())
+    cells = float(mu.sum())
+    for r in torch.nonzero(full).flatten().tolist():
+        m = (torch.minimum(alpha[r][:, None], beta[r][None, :])
+             > torch.maximum(prev[0][r][:, None], prev[1][r][None, :]))
+        cells += float(m.sum())
+    even = (mu.sum(1) + tpr - 1) // tpr  # each row's even share of its cells
+    excess = torch.where(full, 0, per_slice.max(1).values - even)
+    walked = npos[~full].double()
+    return {"cells": cells, "full_rows": int(full.sum()),
+            "positions": float(walked.sum()),
+            "positions_median": float(walked.median()) if len(walked) else 0.0,
+            "positions_max": float(walked.max()) if len(walked) else 0.0,
+            "slice_max": int(per_slice.max()), "slice_excess": int(excess.max())}
+
+
+def plane_bound(alpha, beta, stats, backward: bool, alpha_grads: bool = False):
+    """(bound_ms, bound_by) of kernel 6 or 7 on these inputs: each input read
+    once, each output written once; per cell with mu > 0 (``stats``, the
+    function's work) 8 operations forward (min, max, sub, compare, grid
+    sub, square, mul, add) or 14 backward for dbeta (the mask, the grid
+    term, the weight, the tie weights, two products, two differences, two
+    adds), 6 more for dalpha."""
+    rows, n = alpha.shape
+    cells = stats["cells"]
     if not backward:
-        return roofline(8 * beta_cells + searches, 4.0 * (2 * rows * n + n + rows))
-    flops = 14 * beta_cells + searches
-    out = rows * n
-    if alpha_grads:
-        flops += 14 * alpha_cells + searches
-        out *= 2
+        return roofline(8 * cells, 4.0 * (2 * rows * n + n + rows))
+    flops = 14 * cells + (6 * cells if alpha_grads else 0)
+    out = rows * n * (2 if alpha_grads else 1)
     return roofline(flops, 4.0 * (2 * rows * n + n + rows + out))
 
 
@@ -1366,6 +1420,8 @@ def plane_kernel_checks(dev, rng, golden_512):
                                      dev, p, False))
     errs.append(check_plane_case("unsorted", random_plane_rows(rng, BATCH, 258, sort=False),
                                  dev, 2.0, False))
+    for n in (258, 1026):
+        errs.append(check_plane_case("stress", stress_plane_rows(BATCH * 16, n), dev, 2.0, False))
 
     alpha, beta, gaug = (torch.from_numpy(golden_512[k]).to(dev)
                          for k in ("sot_alpha", "sot_beta", "sot_gaug"))
@@ -1393,13 +1449,28 @@ def plane_kernel_checks(dev, rng, golden_512):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def plane_timings(rows_258, rows_1026):
-    """[timing] of kernels 4, 5, 6 and 7 at [1024, 258] (the SOT-512
-    rows of the trained model) and of kernels 6 and 7 at [1024, 1026]; the
-    A/B of the ``hybrid`` backward (kernel 7) against ``ref``'s (kernel 5),
-    in turns. Returns the JSON entries of kernels 6 (at [1024, 1026], the
-    ``default`` route of SOT-2048) and 7 (at [1024, 258], the SOT-512
-    ``auto`` route)."""
+def plane_relaunch_check(shapes):
+    """Kernels 6 and 7 (both alpha_grads) twice on the same real SOT rows of
+    each loss shape: every output bit-equal (fixed summation orders, no
+    atomics)."""
+    for tag, rows in shapes.items():
+        alpha, beta, gaug = rows[0]
+        wbar = torch.full((alpha.shape[0],), 1.0 / alpha.shape[0], device=alpha.device)
+        runs = [plane_outputs(alpha, beta, gaug, wbar, 2.0, kplane.sot_plane_forward,
+                              kplane.sot_plane_backward) for _ in range(2)]
+        torch.cuda.synchronize()
+        equal = [torch.equal(a, b) for a, b in zip(*runs)]
+        print(f"[kernels] plane {tag} real rows, two launches: W, dalpha, dbeta, dbeta (target "
+              f"constant) bit-equal {equal}")
+        require(all(equal), f"kernels 6 and 7 differ between two launches at {tag}")
+
+
+def plane_timings(shapes):
+    """[timing] of kernels 6 and 7 at both loss shapes on the real SOT rows
+    (``shapes``: tag -> list of (alpha, beta, gaug)), with what the walk did
+    on them, and of kernels 4 and 5 at [1024, 258]; the A/B of the
+    ``hybrid`` backward (kernel 7) against ``ref``'s (kernel 5), in turns.
+    Returns the JSON entries of kernels 6 and 7 at each shape."""
     def wbar_of(al):
         return torch.full((al.shape[0],), 1.0 / al.shape[0], device=al.device)
 
@@ -1422,23 +1493,35 @@ def plane_timings(rows_258, rows_1026):
         return krefgrad.ref_grad_beta(al, be, ga, wb)
 
     card = card_line()
-    out = {}
-    for tag, rows in (("[1024, 258]", rows_258), ("[1024, 1026]", rows_1026)):
+    entries = []
+    for tag, rows in shapes.items():
         inputs = [(al, be, ga, wbar_of(al)) for al, be, ga in rows]
         alpha, beta = inputs[0][:2]
         ms = {"6": median_ms(fwd6, inputs), "7": median_ms(bwd7, inputs),
               "6 plain": median_ms(plain6, inputs), "7 plain": median_ms(plain7, inputs),
               "6 device": device_ms(fwd6, inputs, "plane_fwd_kernel"),
               "7 device": device_ms(bwd7, inputs, "plane_bwd_kernel")}
-        b6, b7 = plane_bound(alpha, beta, False), plane_bound(alpha, beta, True)
-        beta_cells, alpha_cells = plane_cells(alpha, beta)
+        stats = plane_walk_stats(alpha, beta)
+        b6, b7 = plane_bound(alpha, beta, stats, False), plane_bound(alpha, beta, stats, True)
+        nrows, n = alpha.shape
         print(f"[timing] plane {tag}: kernel 6 {ms['6']:.4f} ms (device {ms['6 device']:.4f}, "
               f"plain {ms['6 plain']:.4f}, bound {b6[0]:.4f} {b6[1]}), kernel 7 {ms['7']:.4f} ms "
               f"(device {ms['7 device']:.4f}, plain {ms['7 plain']:.4f}, bound {b7[0]:.4f} "
-              f"{b7[1]}); cells visited per row: beta pass "
-              f"{beta_cells / alpha.shape[0]:.1f}, alpha pass {alpha_cells / alpha.shape[0]:.1f} "
-              f"of {alpha.shape[1] ** 2} | {card}")
-        out[tag] = (ms, b6, b7)
+              f"{b7[1]}); mu > 0 cells per row {stats['cells'] / nrows:.1f} of {n * n}, rows on "
+              f"the full-scan path {stats['full_rows']} of {nrows}, walk positions per row "
+              f"{stats['positions'] / max(1, nrows - stats['full_rows']):.1f} (median "
+              f"{stats['positions_median']:.0f}, max {stats['positions_max']:.0f}), slice balance: at "
+              f"most {stats['slice_max']} mu > 0 cells in one thread's slice, at most "
+              f"{stats['slice_excess']} above its row's even share | {card}")
+        for name, kernel, line, bound in (("sot_plane_forward", "6", 91, b6),
+                                          ("sot_plane_backward", "7", 137, b7)):
+            entries.append({
+                "name": name, "shape": tag, "route": "cuda",
+                "source": "sot_tpu_torch/csrc/plane.cu",
+                "replaces": f"sot_tpu/ops/pallas/sot.py:{line}", "max_abs_err": None,
+                "ms": ms[kernel], "device_ms": ms[f"{kernel} device"],
+                "plain_ms": ms[f"{kernel} plain"], "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None})
         if tag == "[1024, 258]":
             # parent-free A/B inside one call: 5, 7, 7, 5 and the forward 4
             ab = [median_ms(bwd5, inputs), median_ms(bwd7, inputs), median_ms(bwd7, inputs),
@@ -1459,16 +1542,64 @@ def plane_timings(rows_258, rows_1026):
             print(f"[timing] A/B at [1024, 258], device time per kernel (profiler), turns 5, 7, "
                   f"7, 5: kernel 5 {dev[0]:.4f} / {dev[3]:.4f} ms, kernel 7 {dev[1]:.4f} / "
                   f"{dev[2]:.4f} ms, kernel 4 {dev4:.4f} ms | {card}")
-    ms6, b6, _ = out["[1024, 1026]"]
-    ms7, _, b7 = out["[1024, 258]"]
-    return [
-        {"name": "sot_plane_forward", "route": "cuda", "source": "sot_tpu_torch/csrc/plane.cu",
-         "replaces": "sot_tpu/ops/pallas/sot.py:91", "max_abs_err": None, "ms": ms6["6"],
-         "plain_ms": ms6["6 plain"], "bound_ms": b6[0], "bound_by": b6[1], "library_ms": None},
-        {"name": "sot_plane_backward", "route": "cuda", "source": "sot_tpu_torch/csrc/plane.cu",
-         "replaces": "sot_tpu/ops/pallas/sot.py:137", "max_abs_err": None, "ms": ms7["7"],
-         "plain_ms": ms7["7 plain"], "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None},
-    ]
+    return entries
+
+
+def plane_ab(parent_src: str, shapes) -> None:
+    """[timing] kernels 6 and 7 built from ``parent_src`` (another
+    plane.cu with the same C interface, e.g. an earlier commit's) against
+    this checkout's, device ms in turns old, new, new, old on the real SOT
+    rows of each shape; the outputs of the two compared first (W and the
+    target-constant dbeta within PLANE_LIMITS)."""
+    import ctypes
+    src = os.path.abspath(parent_src)
+    lib_path = os.path.join(str(_build.BUILD_DIR), "libplane_ab_parent.so")
+    out = subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.COMMON_FLAGS,
+                          "-I", str(_build.CSRC), "-o", lib_path, src],
+                         capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"the parent's plane.cu did not build:\n{out.stdout}{out.stderr}")
+    old = ctypes.CDLL(lib_path)
+    old.sot_plane_forward_f32.argtypes = kplane._bind().sot_plane_forward_f32.argtypes
+    old.sot_plane_backward_f32.argtypes = kplane._bind().sot_plane_backward_f32.argtypes
+
+    def old6(al, be, ga, wb):
+        w = torch.empty((al.shape[0],), dtype=torch.float32, device=al.device)
+        _build.check(old.sot_plane_forward_f32(
+            al.data_ptr(), be.data_ptr(), ga.data_ptr(), 2.0, w.data_ptr(), *al.shape,
+            torch.cuda.current_stream().cuda_stream), "parent sot_plane_forward_f32")
+        return w
+
+    def old7(al, be, ga, wb):
+        db = torch.empty_like(be)
+        _build.check(old.sot_plane_backward_f32(
+            al.data_ptr(), be.data_ptr(), ga.data_ptr(), wb.data_ptr(), 2.0, None, db.data_ptr(),
+            *al.shape, torch.cuda.current_stream().cuda_stream), "parent sot_plane_backward_f32")
+        return db
+
+    def new6(al, be, ga, wb):
+        return kplane.sot_plane_forward(al, be, ga, 2.0)
+
+    def new7(al, be, ga, wb):
+        return kplane.sot_plane_backward(al, be, ga, 2.0, wb, False)[1]
+
+    card = card_line()
+    for tag, rows in shapes.items():
+        inputs = [(al, be, ga, torch.full((al.shape[0],), 1.0 / al.shape[0], device=al.device))
+                  for al, be, ga in rows]
+        w_old, w_new = old6(*inputs[0]), new6(*inputs[0])
+        d_old, d_new = old7(*inputs[0]), new7(*inputs[0])
+        torch.cuda.synchronize()
+        w_rel = float(((w_new - w_old).abs() / w_old.abs().clamp(min=1e-30)).max())
+        d_rel = max_rel(d_new, d_old)
+        require(w_rel <= PLANE_LIMITS[0] and d_rel <= PLANE_LIMITS[1],
+                f"the parent's plane kernels disagree with this checkout's at {tag}")
+        for kernel, pair in (("6", (old6, new6)), ("7", (old7, new7))):
+            name = f"plane_{'fwd' if kernel == '6' else 'bwd'}_kernel"
+            turns = [device_ms(f, inputs, name) for f in (pair[0], pair[1], pair[1], pair[0])]
+            print(f"[timing] A/B plane {tag} kernel {kernel}{' (target constant)' if kernel == '7' else ''}, device ms "
+                  f"in turns old, new, new, old: {', '.join(f'{t:.4f}' for t in turns)}; old / "
+                  f"new {(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x (outputs: W rel "
+                  f"{w_rel:.3e}, dbeta {d_rel:.3e}) | {card}")
 
 
 def plain_synth_vjp(amps, freqs, dout, t, sr):
@@ -1968,6 +2099,12 @@ def check_eval_512(cfg, dev):
 
 
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ab-parent", metavar="PATH",
+                        help="another plane.cu (e.g. an earlier commit's) to time kernels 6 "
+                             "and 7 against, in turns")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2005,10 +2142,14 @@ def main() -> int:
     mod512 = build_modules(cfg512, device=dev)
     load_golden_weights(mod512, GOLDEN_512)
     rows512 = [sot_rows(mod512, torch.from_numpy(b).to(dev)) for b in batches]
-    plane_entries = plane_timings(rows512, rows)
-    for entry, err in zip(plane_entries, plane_errs):
-        entry["max_abs_err"] = err
+    shapes = {"[1024, 258]": rows512, "[1024, 1026]": rows}
+    plane_relaunch_check(shapes)
+    plane_entries = plane_timings(shapes)
+    for entry in plane_entries:
+        entry["max_abs_err"] = plane_errs[0 if entry["name"] == "sot_plane_forward" else 1]
     kernels += plane_entries
+    if args.ab_parent:
+        plane_ab(args.ab_parent, shapes)
     kernels += [check_coupling_grads(alpha, beta, gaug, lambda: rows[1:], rng, dev),
                 check_stft_frontend(dev, rng)] + check_conv(dev, rng)
 
@@ -2028,8 +2169,10 @@ def main() -> int:
                               on=common + ("merge_coupling", "sot_plane_backward")),
         "SOT-512-LogF auto": train(get_experiment("SOT-512-LogF"), dev, x_all, window=False,
                                    on=common + ("merge_coupling", "sot_plane_backward")),
-        "SOT-2048 default": train(cfg, dev, x_all, kernels="default", window=False,
+        "SOT-2048 default": train(cfg, dev, x_all, kernels="default",
                                   on=common + ("sot_plane_forward", "sot_plane_backward")),
+        "SOT-512 default": train(cfg512, dev, x_all, kernels="default", window=False,
+                                 on=common + ("sot_plane_forward", "sot_plane_backward")),
         "SOT-2048 gated": train(cfg, dev, x_all, kernels=GATED,
                                 on=common + ("merge_coupling",) + gated),
         "SOT-512 gated": train(cfg512, dev, x_all, kernels=GATED, window=False,
@@ -2044,14 +2187,20 @@ def main() -> int:
             f"the gated SOT-2048 steps launched kernels 10 / 11 {conv_launches} times, "
             f"expected {4 * TRAIN_STEPS} / {2 * TRAIN_STEPS}")
     conv_gate_ab(cfg, dev, x_all)
-    # each kernel's count from the run whose main path it is on
-    main_path = {"sot_plane_forward": "SOT-2048 default", "sot_plane_backward": "SOT-512 auto",
-                 **{k: "SOT-2048 gated" for k in gated}}
+    # each kernel's count from the run whose main path it is on (kernels 6
+    # and 7 at each loss shape: SOT-2048 default at [1024, 1026], SOT-512
+    # default (6) and auto (7) at [1024, 258])
+    main_path = {("sot_plane_forward", "[1024, 1026]"): "SOT-2048 default",
+                 ("sot_plane_backward", "[1024, 1026]"): "SOT-2048 default",
+                 ("sot_plane_forward", "[1024, 258]"): "SOT-512 default",
+                 ("sot_plane_backward", "[1024, 258]"): "SOT-512 auto",
+                 **{(k, None): "SOT-2048 gated" for k in gated}}
     print(f"[serving] launches during the serving requests: {serving_launches}")
     for k in kernels:
-        run = main_path.get(k["name"], "SOT-2048 auto")
+        run = main_path.get((k["name"], k.get("shape")), "SOT-2048 auto")
         k["launches"] = runs[run][k["name"]]
-        print(f"[timing] {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+        print(f"[timing] {k['name']}{' ' + k['shape'] if 'shape' in k else ''}: kernel "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"library {k['library_ms'] if k['library_ms'] is None else round(k['library_ms'], 4)}"
               f" ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), {k['launches']} launches "
               f"over the {TRAIN_STEPS} {run} train steps | {card}")

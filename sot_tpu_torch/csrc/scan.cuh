@@ -1,4 +1,4 @@
-// Block-wide float64 scans shared by csrc/merge.cu and csrc/plane.cu. Fixed
+// Block-wide float64 scans of csrc/merge.cu. Fixed
 // orders (warp shuffles, then the warp totals) and no atomics, so two runs
 // agree bit for bit. Every thread of the block must make the call.
 

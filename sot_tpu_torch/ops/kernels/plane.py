@@ -21,10 +21,18 @@ gradient-convention lesson").
     float64 and rounded once
   * ``sot_plane_forward`` / ``sot_plane_backward`` — the wrappers: the plain
     version on a CPU tensor, the kernel on a CUDA tensor (or raise)
+  * ``staircase`` / ``full_scan_rows`` — the merge path the kernels walk and
+    the rows that take their full scan, for the bound and the tests
 
-Bound on the H100: bytes (8.4 MB read by the forward at [1024, 1026],
-~2.5 us; the backward also writes dbeta, ~3.8 us). One block per row, two
-binary searches per column bound its non-zero cells; see the source.
+The kernels walk each sorted row's merge path of alpha and beta over its
+nonempty intervals, on which every cell with mu > 0 lies (at most 2n - 1 of
+them): a block of THREADS_PER_ROW threads per row lists the nonempty
+intervals, cuts the path's positions into equal slices, finds each slice's
+start with one co-rank search and joins the float64 sums of keys cut by a
+slice boundary with a fixed-order segmented scan (see the source). Bound on
+the H100: bytes (8.4 MB read by the forward at [1024, 1026], ~2.5 us; the
+backward also writes dbeta, ~3.8 us). Whole columns a thread would run each
+block at the pace of its longest column band (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ launches = 0           # forward, kernel 6
 backward_launches = 0  # backward, kernel 7
 
 _MAX_COLS = 8192
+# the kernels' work unit (plane.cu: NT): a block of 128 threads walks one row
+THREADS_PER_ROW = 128
 # cells of one dense chunk of the plain versions
 _CHUNK_CELLS = 1 << 23
 
@@ -113,6 +123,26 @@ def sot_plane_backward_plain(alpha: torch.Tensor, beta: torch.Tensor, g: torch.T
     if not alpha_grads:
         return None, db
     return (torch.cat(da_out) if da_out else empty), db
+
+
+def staircase(alpha: torch.Tensor, beta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(i, j) [rows, na + nb + 1] int64: the merge path of each row's alpha
+    [rows, na] and beta [rows, nb], the position on each diagonal k = i + j,
+    stepping i where alpha_i <= beta_j (ties to alpha). On a sorted row every
+    cell with mu > 0 lies on it."""
+    rows, na = alpha.shape
+    order = torch.sort(torch.cat([alpha, beta], 1), dim=1, stable=True).indices
+    i = torch.cumsum((order < na).to(torch.int64), 1)
+    i = torch.cat([i.new_zeros((rows, 1)), i], 1)
+    return i, torch.arange(i.shape[1], device=alpha.device) - i
+
+
+def full_scan_rows(alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """[rows] bool: the rows whose alpha or beta is not nondecreasing (or
+    holds a NaN), which the kernels scan in full."""
+    def bad(x):
+        return (~(x[:, 1:] >= x[:, :-1])).any(1) | torch.isnan(x[:, 0])
+    return bad(alpha) | bad(beta)
 
 
 def _bind() -> ctypes.CDLL:

@@ -432,6 +432,82 @@ def test_plane_kernels_match_plain_on_random_rows_on_card(sort):
         assert float((a - b).abs().max()) <= d_lim * float(b.abs().max())
 
 
+def _plane_within_limits(got, ref):
+    w_lim, d_lim = chip_smoke.PLANE_LIMITS
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert float(((got[0] - ref[0]).abs() / ref[0].abs().clamp(min=1e-30)).max()) <= w_lim
+    for a, b in zip(got[1:], ref[1:]):
+        assert float((a - b).abs().max()) <= d_lim * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [258, 1026])
+def test_plane_kernels_bit_equal_across_launches_on_card(n):
+    """Two launches of kernels 6 and 7 on the same rows: every output
+    bit-equal (fixed summation orders, no atomics)."""
+    _need_cuda()
+    arrays = _plane_on("cuda", chip_smoke.random_plane_rows(np.random.default_rng(n), 1024, n))
+    first, _ = _plane_pair(*arrays, 2.0)
+    again, _ = _plane_pair(*arrays, 2.0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [258, 1026])
+def test_plane_kernels_match_plain_on_stress_rows_on_card(n):
+    """chip_smoke.stress_plane_rows (a spike against a spread spectrum both
+    ways, beta = alpha, a zero-mass stretch), within PLANE_LIMITS."""
+    _need_cuda()
+    got, ref = _plane_pair(*_plane_on("cuda", chip_smoke.stress_plane_rows(256, n)), 2.0)
+    torch.cuda.synchronize()
+    _plane_within_limits(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 8192])
+def test_plane_kernels_at_the_edge_widths_on_card(n):
+    """The narrowest rows and the widest the wrapper takes (the most shared
+    memory a block needs), bit for bit on dyadic rows."""
+    _need_cuda()
+    rows = 8 if n == 8192 else 64
+    if n == 1:
+        arrays = (np.full((rows, 1), 0.5, np.float32), np.full((rows, 1), 0.25, np.float32),
+                  np.zeros(1, np.float32), np.ones(rows, np.float32))
+    else:
+        arrays = chip_smoke.dyadic_plane_rows(np.random.default_rng(n), rows, n)
+    got, ref = _plane_pair(*_plane_on("cuda", arrays), 2.0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_plane_kernels_refuse_wider_rows_on_card():
+    _need_cuda()
+    a = torch.zeros((2, 8193), device="cuda")
+    with pytest.raises(ValueError, match="n <= 8192"):
+        kplane.sot_plane_forward(a, a, torch.zeros(8193, device="cuda"), 2.0)
+
+
+@pytest.mark.cuda
+def test_plane_launch_counters_count_kernel_launches_on_card():
+    """Each wrapper call on the card adds one to its counter; the plain
+    versions add none."""
+    _need_cuda()
+    alpha, beta, g, wbar = _plane_on("cuda", chip_smoke.random_plane_rows(
+        np.random.default_rng(5), 64, 258))
+    before = (kplane.launches, kplane.backward_launches)
+    kplane.sot_plane_forward(alpha, beta, g, 2.0)
+    kplane.sot_plane_backward(alpha, beta, g, 2.0, wbar, False)
+    kplane.sot_plane_backward(alpha, beta, g, 2.0, wbar, True)
+    kplane.sot_plane_forward_plain(alpha, beta, g, 2.0)
+    kplane.sot_plane_backward_plain(alpha, beta, g, 2.0, wbar, True)
+    torch.cuda.synchronize()
+    assert (kplane.launches, kplane.backward_launches) == (before[0] + 1, before[1] + 2)
+
+
 def test_plane_wrappers_take_plain_version_on_cpu():
     arrays = _plane_on("cpu", chip_smoke.dyadic_plane_rows(np.random.default_rng(0), 16, 40))
     before = (kplane.launches, kplane.backward_launches)
