@@ -5,7 +5,7 @@ and evaluation, and the gated train step (the ``full`` merge route, the
 STFT frontend and the conv kernels: ``KernelGates(w2_merge="full",
 conv=True, stft_frontend=True)``).
 
-    python3 chip_smoke.py [--ab-parent PATH/plane.cu]
+    python3 chip_smoke.py [--ab-parent PATH/{plane,merge,refgrad}.cu ...]
 
 Phases (any failure raises and the script exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
@@ -32,11 +32,19 @@ Phases (any failure raises and the script exits non-zero):
                requests whose rate is all clips over the summed request
                time; a torch.profiler breakdown of one more request
   6. kernels — the train-step kernels against their plain versions on the
-               card: the merge coupling (S per-row rel err <= 1e-5) and the
-               reference-convention beta gradient (max|d| <= 2e-5 *
-               max|ref|, kinks included, share of bit-equal elements
-               printed) on the SOT rows of 64 clips through the trained
-               model (1024 rows x 1025 bins), each timed (events and device);
+               card: the merge coupling (kernel 4; S per-row rel err <=
+               COUPLING_LIMIT, 1e-5) and the reference-convention beta
+               gradient (kernel 5; equal under ==, bit for bit where not a
+               zero, max|d| <= 2e-5 * max|ref|, kinks included, the zeros'
+               signs counted) on the SOT rows of
+               64 clips through the trained models at both loss shapes
+               ([1024, 1025] / [1024, 1026] and [1024, 257] / [1024, 258]),
+               each timed (events and device; kernel 5 beside the pair
+               torch.searchsorted, information only); kernel 4 on unsorted
+               rows (either side and both), stress rows and edge rows within
+               COUPLING_LIMIT, kernel 5 equal on stress rows, edge rows and
+               rows whose beta is not sorted; both bit-equal across two
+               launches on the real rows of both shapes;
                the synth backward from a random audio cotangent at
                [64, 16, 20] (d amplitudes <= 1e-4 and d frequencies <= 1e-3
                of their max, two launches bit-equal, against a float64 VJP
@@ -54,9 +62,12 @@ Phases (any failure raises and the script exits non-zero):
                (CUDA events and the profiler's device time; the mu > 0 cells
                per row, the rows on the full-scan path and the walk's slice
                balance), the A/B of the two SOT-512 backward routes (kernel
-               5 against kernel 7); with --ab-parent PATH, kernels 6 and 7
-               built from another plane.cu (an earlier commit's) timed
-               against this one in turns, old, new, new, old; the gated
+               5 against kernel 7); with --ab-parent PATH ..., kernels 6 and
+               7, 4 or 5 built from another plane.cu, merge.cu or refgrad.cu
+               (an earlier commit's, chosen by file name) against this one,
+               the outputs first (kernel 5 equal, kernel 4 within
+               COUPLING_LIMIT and its ulps printed), then timed in turns,
+               old, new, new, old; the gated
                path's kernels:
                the coupling gradient (kernel 8, alpha_grads both ways) on
                the real SOT rows within COUPLING_GRAD_LIMIT, bit for bit on
@@ -74,7 +85,9 @@ Phases (any failure raises and the script exits non-zero):
                golden's 16 clips: the merge and refgrad kernels on the
                golden's 128 real SOT rows against the JAX kernels' outputs
                (W within 3e-5 of the marginal terms, the beta cotangent
-               within 2e-5 of its max); compute_loss's loss and both terms
+               within 2e-5 of its max) and against their plain versions
+               (kernel 4 within COUPLING_LIMIT, kernel 5 equal);
+               compute_loss's loss and both terms
                within 1e-4 rel; each term's gradient per parameter leaf
                (max|d|/max and cosine, limits in GRAD_LIMITS and
                LEAF_COSINE); the three train-step kernels composed with
@@ -240,6 +253,9 @@ COMPOSED_LIMIT = 2e-3
 # sensitive to the card's rounding than SOT-2048's
 GRAD_LIMITS_512 = {"w1d": 0.04, "mss": 0.015, "total": 0.04}
 LEAF_COSINE_512 = {"w1d": 0.9995, "mss": 0.9998, "total": 0.9995}
+# kernel 4 against its plain version: S per row, relative (both sum in
+# float64, in other orders and groupings, and round once)
+COUPLING_LIMIT = 1e-5
 # kernels 6 and 7 against their plain versions on rows that are not dyadic:
 # W per row and the cotangents over their max. Both sum the same f32 cell
 # products in float64 and round once, so only the order of the float64 sums
@@ -253,6 +269,8 @@ EVAL_FRAME = 1.0 / (BATCH * 16)
 # The gated path: the full merge route (kernels 4 + 8), the STFT frontend
 # (kernel 9), the k > 1 convs on kernels 10 and 11 with bf16 operands
 GATED = KernelGates(w2_merge="full", conv=True, stft_frontend=True)
+# the sources --ab-parent takes
+AB_SOURCES = ("plane.cu", "merge.cu", "refgrad.cu")
 # kernel 8 against its plain version where it is not bit-equal: max|d|/max
 # (both sum x in float64, in another order, and round once)
 COUPLING_GRAD_LIMIT = 1e-6
@@ -717,6 +735,22 @@ def sot_rows_errors(g, dev, route):
             float(np.mean(db == g["sot_db"])))
 
 
+def rank_golden_check(g, dev, phase):
+    """Kernels 4 and 5 on the golden's real rows against their plain
+    versions: S per row within COUPLING_LIMIT, the beta cotangent equal
+    (``refgrad_equal``)."""
+    alpha, beta, gaug = (torch.from_numpy(g[k]).to(dev)
+                         for k in ("sot_alpha", "sot_beta", "sot_gaug"))
+    a, b, x = complements(alpha, beta, gaug)
+    rel = coupling_rel(kmerge.coupling(a, b, x), kmerge.coupling_plain(a, b, x))
+    print(f"[{phase}] merge coupling on the golden's rows against its plain version: per-row "
+          f"rel err {rel:.3e} (limit {COUPLING_LIMIT})")
+    require(rel <= COUPLING_LIMIT, f"{phase}: merge coupling disagrees on the golden's rows")
+    rows = alpha.shape[0]
+    refgrad_equal(f"{phase} golden", alpha, beta, gaug,
+                  torch.full((rows,), 1.0 / rows, device=dev))
+
+
 def loss_and_grads(mod, x):
     """compute_loss in eval mode: ({term: loss}, {term: {flax leaf: grad}},
     dL_W1D/dx_hat, the forward's outputs)."""
@@ -1032,6 +1066,8 @@ def check_train_golden(cfg, dev, golden=GOLDEN_TRAIN, weights=GOLDEN,
           f"{SOT_ROW_LIMITS[1]}), bit-equal share {share:.6f}")
     require(err_w <= SOT_ROW_LIMITS[0] and err_db <= SOT_ROW_LIMITS[1],
             "SOT kernels disagree with JAX on real rows")
+    if dev.type == "cuda":
+        rank_golden_check(g, dev, phase)
     if "route_u" in g:
         route_rows_check(g, dev, kernels, phase)
 
@@ -1159,70 +1195,227 @@ def sot_rows(mod, x):
         return clipped_cdfs(grid, u, v, w1d.limit_quantile_range)
 
 
-def check_merge(alpha, beta, gaug, make_inputs):
+def coupling_rel(got, ref) -> float:
+    """Kernel 4's per-row relative error against its plain version."""
+    scale = torch.clamp(ref.abs(), min=max(1e-12 * float(ref.abs().max()), 1e-30))
+    return float(((got - ref).abs() / scale).max())
+
+
+def check_merge(rows):
+    """[kernels] and [timing] for kernel 4 on the real SOT rows ``rows`` (a
+    list of (alpha, beta, gaug); the first checked, the rest timed): S per
+    row within COUPLING_LIMIT of the plain version and the rows on the
+    all-pairs path. Returns its JSON entry."""
+    alpha, beta, gaug = rows[0]
     a, b, x = complements(alpha, beta, gaug)
+    tag = f"[{a.shape[0]}, {a.shape[1]}]"
     got = kmerge.coupling(a, b, x)
     ref = kmerge.coupling_plain(a, b, x)
     torch.cuda.synchronize()
-    scale = torch.clamp(ref.abs(), min=1e-12 * float(ref.abs().max()))
-    rel = float(((got - ref).abs() / scale).max())
+    rel = coupling_rel(got, ref)
     err = float((got - ref).abs().max())
-    print(f"[kernels] merge coupling a, b {tuple(a.shape)}, x {x.numel()}: per-row rel err "
-          f"max {rel:.3e} (limit 1e-5), max|d| {err:.3e}; rows with S = 0: "
-          f"{int((ref == 0).sum())}")
-    require(bool(torch.isfinite(got).all()) and rel <= 1e-5, "merge coupling kernel disagrees")
+    unsorted = int(kmerge.unsorted_rows(a, b).sum())
+    print(f"[kernels] merge coupling a, b {tuple(a.shape)}, x {x.numel()} (real): per-row rel "
+          f"err max {rel:.3e} (limit {COUPLING_LIMIT}), max|d| {err:.3e}; rows with S = 0: "
+          f"{int((ref == 0).sum())}; rows on the all-pairs path {unsorted} of {a.shape[0]}")
+    require(bool(torch.isfinite(got).all()) and rel <= COUPLING_LIMIT,
+            "merge coupling kernel disagrees")
 
-    inputs = [complements(*r) for r in make_inputs()]
+    inputs = [complements(*r) for r in rows[1:]]
     ms = median_ms(kmerge.coupling, inputs)
     dev_ms = device_ms(kmerge.coupling, inputs, "coupling_fwd_kernel")
     plain_ms = median_ms(kmerge.coupling_plain, inputs)
-    print(f"[timing] merge coupling at alpha {tuple(alpha.shape)}: {ms:.4f} ms (device "
-          f"{dev_ms:.4f}), plain {plain_ms:.4f} | {card_line()}")
-    rows, m = a.shape
-    # reads a, b and x once, writes S; per element one binary search of
-    # log2(m) compares, the two scans (add, mul-add) and the row sum (mul-add, mul)
-    flops = rows * m * (math.log2(m) + 3 + 4)
-    bound_ms, bound_by = roofline(flops, 4.0 * (2 * rows * m + m + rows))
+    nrows, m = a.shape
+    # reads a, b and x once, writes S; the x prefix (m adds), per element of
+    # each side the order test (a compare) and its term (mul, mul, add)
+    flops = m + 2 * nrows * m * 4
+    bound_ms, bound_by = roofline(flops, 4.0 * (2 * nrows * m + m + nrows))
+    print(f"[timing] merge coupling {tag}: {ms:.4f} ms (device {dev_ms:.4f}), plain "
+          f"{plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}) | {card_line()}")
     return {
-        "name": "merge_coupling", "route": "cuda", "source": "sot_tpu_torch/csrc/merge.cu",
-        "replaces": "sot_tpu/ops/pallas/merge.py:221",
+        "name": "merge_coupling", "shape": tag, "route": "cuda",
+        "source": "sot_tpu_torch/csrc/merge.cu", "replaces": "sot_tpu/ops/pallas/merge.py:221",
         "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
 
-def check_refgrad(alpha, beta, gaug, make_inputs):
-    rows, n = alpha.shape
-    wbar = torch.full((rows,), 1.0 / rows, device=alpha.device)  # the mean's cotangent
+def refgrad_equal(what, alpha, beta, gaug, wbar) -> float:
+    """Kernel 5 against its plain version: equal under == (torch.equal),
+    bit for bit wherever the result is not a zero; the zeros of the other
+    sign counted. Returns max|d|."""
     got = krefgrad.ref_grad_beta(alpha, beta, gaug, wbar)
     ref = krefgrad.ref_grad_beta_plain(alpha, beta, gaug, wbar)
     torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    scale = float(ref.abs().max())
-    bit_equal = float((got == ref).float().mean())
+    zeros = ref == 0
+    bits = torch.equal(got.view(torch.int32)[~zeros], ref.view(torch.int32)[~zeros])
+    signs = int((torch.signbit(got) != torch.signbit(ref))[zeros].sum())
+    equal = torch.equal(got, ref)
+    print(f"[kernels] refgrad {what} {tuple(alpha.shape)}: equal {equal}, bit for bit where "
+          f"not a zero {bits} (must be both); zeros {int(zeros.sum())}, of which {signs} of the "
+          f"other sign")
+    require(bool(torch.isfinite(got).all()) and equal and bits,
+            f"refgrad kernel disagrees with its plain version on {what} rows")
+    return float((got - ref).abs().max())
+
+
+def closed_form_columns(beta):
+    """[rows, n] bool: the columns of kernel 5 whose flags vne_j or
+    vne_{j+1} are 1 (the others are zeros)."""
+    vne = beta > torch.nn.functional.pad(beta, (1, 0))[:, :-1]
+    return vne | torch.nn.functional.pad(vne[:, 1:], (0, 1))
+
+
+def ranks_pair(al, be, ga, wb):
+    """The ranks alone: torch.searchsorted of beta into alpha, left and right."""
+    return torch.searchsorted(al, be, right=False), torch.searchsorted(al, be, right=True)
+
+
+def check_refgrad(rows, entry=True):
+    """[kernels] and [timing] for kernel 5 on the real SOT rows ``rows``:
+    equal to the plain version (``refgrad_equal``; and within 2e-5 of its
+    max), the share of queries tied with an alpha value and of columns that
+    need the closed form, timed beside the searchsorted pair (information:
+    the ranks alone). Returns its JSON entry, or None without ``entry``."""
+    alpha, beta, gaug = rows[0]
+    nrows, n = alpha.shape
+    tag = f"[{nrows}, {n}]"
+    wbar = torch.full((nrows,), 1.0 / nrows, device=alpha.device)  # the mean's cotangent
+    err = refgrad_equal("real", alpha, beta, gaug, wbar)
+    scale = float(krefgrad.ref_grad_beta_plain(alpha, beta, gaug, wbar).abs().max())
     kinks = float((torch.searchsorted(alpha, beta, right=True)
                    > torch.searchsorted(alpha, beta, right=False)).float().mean())
-    print(f"[kernels] refgrad alpha, beta {tuple(alpha.shape)}: max|d| {err:.3e}, "
-          f"max|d|/max|ref| {err / scale:.3e} (limit 2e-5); bit-equal share {bit_equal:.6f}; "
-          f"share of queries tied with an alpha value (kinks) {kinks:.4f}")
-    require(bool(torch.isfinite(got).all()) and err <= 2e-5 * scale, "refgrad kernel disagrees")
+    needed = float(closed_form_columns(beta).sum())
+    print(f"[kernels] refgrad alpha, beta {tag}: max|d|/max|ref| {err / scale:.3e} (limit "
+          f"2e-5); share of queries tied with an alpha value (kinks) {kinks:.4f}; share of "
+          f"columns that need the closed form (vne_j or vne_j+1) {needed / (nrows * n):.4f}")
+    require(err <= 2e-5 * scale, "refgrad kernel disagrees")
 
-    inputs = [(al, be, ga, wbar) for al, be, ga in make_inputs()]
+    inputs = [(al, be, ga, wbar) for al, be, ga in rows[1:]]
     ms = median_ms(krefgrad.ref_grad_beta, inputs)
     dev_ms = device_ms(krefgrad.ref_grad_beta, inputs, "refgrad_kernel")
     plain_ms = median_ms(krefgrad.ref_grad_beta_plain, inputs)
-    print(f"[timing] refgrad at alpha {tuple(alpha.shape)}: {ms:.4f} ms (device "
-          f"{dev_ms:.4f}), plain {plain_ms:.4f} | {card_line()}")
-    # reads alpha, beta, g and wbar once, writes the cotangent; per query two
-    # binary searches of log2(n) compares and the closed form's ~45 operations
-    flops = rows * n * (2 * math.log2(n) + 45)
-    bound_ms, bound_by = roofline(flops, 4.0 * (2 * rows * n + n + rows + rows * n))
+    ss_ms, ss_dev = median_ms(ranks_pair, inputs), device_ms(ranks_pair, inputs, None)
+    # reads alpha, beta, g and wbar once, writes the cotangent; per column
+    # the two flags (two compares), per column that needs it the closed
+    # form's ~45 operations
+    flops = 2 * nrows * n + 45 * needed
+    bound_ms, bound_by = roofline(flops, 4.0 * (2 * nrows * n + n + nrows + nrows * n))
+    print(f"[timing] refgrad {tag}: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, "
+          f"bound {bound_ms:.4f} ({bound_by}); information only, the ranks alone (not the same "
+          f"function): the pair torch.searchsorted(alpha, beta, right=False/True) {ss_ms:.4f} "
+          f"ms (device {ss_dev:.4f}) | {card_line()}")
+    if not entry:
+        return None
     return {
-        "name": "ref_grad_beta", "route": "cuda", "source": "sot_tpu_torch/csrc/refgrad.cu",
+        "name": "ref_grad_beta", "shape": tag, "route": "cuda",
+        "source": "sot_tpu_torch/csrc/refgrad.cu",
         "replaces": "sot_tpu/ops/pallas/refgrad.py:274",
         "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
+
+
+def edge_sot_rows(kind: str):
+    """(alpha, beta, g, wbar) float32: a few clipped augmented CDFs on a
+    uniform grid that each hit one edge of kernels 4 and 5's walks."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "n=1":
+        alpha, beta = np.array([[1.0], [0.0], [0.5]]), np.array([[1.0], [0.0], [0.5]])
+    elif kind == "n=2":
+        alpha = np.array([[0.0, 1.0], [0.5, 1.0], [1.0, 1.0], [0.25, 0.75]])
+        beta = np.array([[0.0, 1.0], [0.5, 1.0], [0.5, 0.5], [0.75, 0.75]])
+    elif kind == "q=0, alpha_0=0":  # leading zeros on both sides
+        alpha = np.concatenate([np.zeros((4, 9)), np.cumsum(rng.random((4, 24)), -1)], -1)
+        beta = np.concatenate([np.zeros((4, 5)), np.cumsum(rng.random((4, 28)), -1)], -1)
+        alpha /= alpha[:, -1:]
+        beta /= beta[:, -1:]
+    elif kind == "cap plateau":  # both reach the cap early
+        alpha = np.minimum(np.cumsum(rng.random((4, 40)), -1), 6.0) / 6.0
+        beta = np.minimum(np.cumsum(rng.random((4, 40)), -1), 4.0) / 6.0
+        beta[:, -1] = 1.0
+    elif kind == "beta = alpha":
+        alpha = np.minimum(np.cumsum(rng.random((4, 33)) * (rng.random((4, 33)) < 0.5), -1),
+                           3.0)
+        alpha /= np.maximum(alpha[:, -1:], 1e-3)
+        beta = alpha.copy()
+    elif kind == "all nonempty":
+        alpha = np.cumsum(rng.random((4, 50)) + 0.01, -1)
+        beta = np.cumsum(rng.random((4, 50)) + 0.01, -1)
+        alpha /= alpha[:, -1:]
+        beta /= alpha[:, -1:] * 0.9
+    elif kind == "all empty but the last":
+        alpha = np.zeros((4, 30))
+        alpha[:, -1] = 1.0
+        beta = np.zeros((4, 30))
+        beta[:2, -1] = 1.0
+        beta[2:, -1] = 0.5
+    else:
+        raise ValueError(kind)
+    g = np.linspace(0.0, 1.0, alpha.shape[1])
+    wbar = rng.random(len(alpha)) + 0.5
+    return tuple(np.ascontiguousarray(v, dtype=np.float32) for v in (alpha, beta, g, wbar))
+
+
+EDGE_KINDS = ("n=1", "n=2", "q=0, alpha_0=0", "cap plateau", "beta = alpha", "all nonempty",
+              "all empty but the last")
+
+
+def rank_row_checks(dev, rng):
+    """[kernels] for kernels 4 and 5 on rows that are not the smoke's:
+    kernel 4 on unsorted rows (the complements of sorted rows permuted on
+    either side and both, so that they stay >= 0: the all-pairs path),
+    stress rows and edge rows within COUPLING_LIMIT per row; kernel 5
+    bit-equal on stress rows, edge rows and rows whose beta is not sorted
+    (the per-query searches)."""
+    def on(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(t)).to(dev) for t in arrays]
+
+    def permuted(t):
+        return torch.from_numpy(rng.permuted(t.cpu().numpy(), axis=-1)).to(dev)
+
+    cases = []
+    for n in (258, 1026):
+        a, b, x = complements(*on(random_plane_rows(rng, BATCH, n)[:3]))
+        for side in ("a", "b", "both"):
+            cases.append((f"unsorted ({side}) n={n}",
+                          (permuted(a) if side in ("a", "both") else a,
+                           permuted(b) if side in ("b", "both") else b, x)))
+        cases.append((f"stress n={n}", complements(*on(stress_plane_rows(BATCH * 16, n)[:3]))))
+    cases += [(f"edge ({k})", complements(*on(edge_sot_rows(k)[:3])))
+              for k in EDGE_KINDS if k != "n=1"]
+    worst = 0.0
+    for what, (a, b, x) in cases:
+        got, ref = kmerge.coupling(a, b, x), kmerge.coupling_plain(a, b, x)
+        torch.cuda.synchronize()
+        rel = coupling_rel(got, ref)
+        worst = max(worst, rel)
+        require(bool(torch.isfinite(got).all()) and rel <= COUPLING_LIMIT,
+                f"merge coupling kernel disagrees on {what} rows (per-row rel {rel:.3e})")
+    print(f"[kernels] merge coupling on {len(cases)} row sets (" + ", ".join(w for w, _ in cases)
+          + f"): per-row rel err max {worst:.3e} (limit {COUPLING_LIMIT})")
+    for n in (258, 1026):
+        refgrad_equal(f"stress n={n}", *on(stress_plane_rows(BATCH * 16, n)))
+        al, be, g, w = random_plane_rows(rng, BATCH, n)
+        refgrad_equal(f"beta unsorted n={n}", *on((al, rng.permuted(be, axis=-1), g, w)))
+    for k in EDGE_KINDS:
+        refgrad_equal(f"edge ({k})", *on(edge_sot_rows(k)))
+
+
+def rank_relaunch_check(shapes):
+    """Kernels 4 and 5 twice on the same real SOT rows of each loss shape:
+    bit-equal (fixed summation orders, no atomics)."""
+    for tag, rows in shapes.items():
+        alpha, beta, gaug = rows[0]
+        wbar = torch.full((alpha.shape[0],), 1.0 / alpha.shape[0], device=alpha.device)
+        a, b, x = complements(alpha, beta, gaug)
+        runs = [(kmerge.coupling(a, b, x), krefgrad.ref_grad_beta(alpha, beta, gaug, wbar))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        equal = [torch.equal(u, v) for u, v in zip(*runs)]
+        print(f"[kernels] merge coupling and refgrad {tag} real rows, two launches: S, dbeta "
+              f"bit-equal {equal}")
+        require(all(equal), f"kernels 4 and 5 differ between two launches at {tag}")
 
 
 def dyadic_plane_rows(rng: np.random.Generator, rows: int, n: int):
@@ -1545,22 +1738,34 @@ def plane_timings(shapes):
     return entries
 
 
+def build_parent(parent_src: str, name: str, ours):
+    """The library built from ``parent_src`` (another csrc/<name>.cu with the
+    same C interface, e.g. an earlier commit's; the headers it includes are
+    looked for beside it first), its functions typed as this checkout's
+    bound library ``ours``."""
+    import ctypes
+    src = os.path.abspath(parent_src)
+    lib_path = os.path.join(str(_build.BUILD_DIR), f"lib{name}_ab_parent.so")
+    out = subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.COMMON_FLAGS,
+                          "-I", str(_build.CSRC), "-o", lib_path, src],
+                         capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0,
+            f"the parent's {name}.cu did not build:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    for fn in ("sot_plane_forward_f32", "sot_plane_backward_f32", "coupling_forward_f32",
+               "refgrad_beta_f32"):
+        if hasattr(ours, fn):
+            getattr(lib, fn).argtypes = getattr(ours, fn).argtypes
+    return lib
+
+
 def plane_ab(parent_src: str, shapes) -> None:
     """[timing] kernels 6 and 7 built from ``parent_src`` (another
     plane.cu with the same C interface, e.g. an earlier commit's) against
     this checkout's, device ms in turns old, new, new, old on the real SOT
     rows of each shape; the outputs of the two compared first (W and the
     target-constant dbeta within PLANE_LIMITS)."""
-    import ctypes
-    src = os.path.abspath(parent_src)
-    lib_path = os.path.join(str(_build.BUILD_DIR), "libplane_ab_parent.so")
-    out = subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.COMMON_FLAGS,
-                          "-I", str(_build.CSRC), "-o", lib_path, src],
-                         capture_output=True, text=True, timeout=600)
-    require(out.returncode == 0, f"the parent's plane.cu did not build:\n{out.stdout}{out.stderr}")
-    old = ctypes.CDLL(lib_path)
-    old.sot_plane_forward_f32.argtypes = kplane._bind().sot_plane_forward_f32.argtypes
-    old.sot_plane_backward_f32.argtypes = kplane._bind().sot_plane_backward_f32.argtypes
+    old = build_parent(parent_src, "plane", kplane._bind())
 
     def old6(al, be, ga, wb):
         w = torch.empty((al.shape[0],), dtype=torch.float32, device=al.device)
@@ -1593,13 +1798,72 @@ def plane_ab(parent_src: str, shapes) -> None:
         d_rel = max_rel(d_new, d_old)
         require(w_rel <= PLANE_LIMITS[0] and d_rel <= PLANE_LIMITS[1],
                 f"the parent's plane kernels disagree with this checkout's at {tag}")
+        equal = [torch.equal(w_new, w_old), torch.equal(d_new, d_old)]
         for kernel, pair in (("6", (old6, new6)), ("7", (old7, new7))):
             name = f"plane_{'fwd' if kernel == '6' else 'bwd'}_kernel"
             turns = [device_ms(f, inputs, name) for f in (pair[0], pair[1], pair[1], pair[0])]
             print(f"[timing] A/B plane {tag} kernel {kernel}{' (target constant)' if kernel == '7' else ''}, device ms "
                   f"in turns old, new, new, old: {', '.join(f'{t:.4f}' for t in turns)}; old / "
                   f"new {(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x (outputs: W rel "
-                  f"{w_rel:.3e}, dbeta {d_rel:.3e}) | {card}")
+                  f"{w_rel:.3e}, dbeta {d_rel:.3e}, bit-equal {equal}) | {card}")
+
+
+def ulps(got, ref) -> int:
+    """The most units in the last place between two f32 tensors of one sign."""
+    diff = got.contiguous().view(torch.int32).long() - ref.contiguous().view(torch.int32).long()
+    return int(diff.abs().max())
+
+
+def rank_ab(parent_src: str, shapes) -> None:
+    """[timing] kernel 4 (parent merge.cu) or kernel 5 (parent refgrad.cu)
+    built from ``parent_src`` against this checkout's, device ms in turns
+    old, new, new, old on the real SOT rows of each loss shape; the outputs
+    of the two compared first: kernel 5 equal (torch.equal), kernel 4
+    within COUPLING_LIMIT per row, the most ulps between them printed."""
+    name = os.path.basename(parent_src)[:-len(".cu")]
+    old = build_parent(parent_src, name, (kmerge if name == "merge" else krefgrad)._bind())
+    stream = torch.cuda.current_stream
+
+    def old4(a, b, x):
+        out = torch.empty((a.shape[0],), dtype=torch.float32, device=a.device)
+        _build.check(old.coupling_forward_f32(a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                              out.data_ptr(), *a.shape, stream().cuda_stream),
+                     "parent coupling_forward_f32")
+        return out
+
+    def old5(al, be, ga, wb):
+        db = torch.empty_like(be)
+        _build.check(old.refgrad_beta_f32(al.data_ptr(), be.data_ptr(), ga.data_ptr(),
+                                          wb.data_ptr(), db.data_ptr(), *al.shape,
+                                          stream().cuda_stream), "parent refgrad_beta_f32")
+        return db
+
+    card = card_line()
+    for tag, rows in shapes.items():
+        if name == "merge":
+            inputs = [complements(*r) for r in rows]
+            tag = f"[{inputs[0][0].shape[0]}, {inputs[0][0].shape[1]}]"
+            pair, kernel, label = (old4, kmerge.coupling), "coupling_fwd_kernel", "kernel 4"
+        else:
+            inputs = [r + (torch.full((r[0].shape[0],), 1.0 / r[0].shape[0],
+                                      device=r[0].device),) for r in rows]
+            pair, kernel, label = (old5, krefgrad.ref_grad_beta), "refgrad_kernel", "kernel 5"
+        got_old, got_new = pair[0](*inputs[0]), pair[1](*inputs[0])
+        torch.cuda.synchronize()
+        if name == "merge":
+            rel = coupling_rel(got_new, got_old)
+            outputs = (f"S per-row rel {rel:.3e} (limit {COUPLING_LIMIT}), at most "
+                       f"{ulps(got_new, got_old)} ulps apart, bit-equal rows "
+                       f"{int((got_new == got_old).sum())} of {got_old.numel()}")
+            require(rel <= COUPLING_LIMIT, f"the parent's kernel 4 disagrees at {tag}")
+        else:
+            equal = torch.equal(got_new, got_old)
+            outputs = f"dbeta equal {equal} (must be)"
+            require(equal, f"the parent's kernel 5 is not equal to this one at {tag}")
+        turns = [device_ms(f, inputs, kernel) for f in (pair[0], pair[1], pair[1], pair[0])]
+        print(f"[timing] A/B {name}.cu {tag} {label}, device ms in turns old, new, new, old: "
+              f"{', '.join(f'{t:.4f}' for t in turns)}; old / new "
+              f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x (outputs: {outputs}) | {card}")
 
 
 def plain_synth_vjp(amps, freqs, dout, t, sr):
@@ -2083,7 +2347,9 @@ def check_eval_512(cfg, dev):
         ref = {k[len("eval/"):]: float(z[k]) for k in z.files if k.startswith("eval/")}
     mod = build_modules(cfg, device=dev)
     load_golden_weights(mod, GOLDEN_512)
+    reset_launches()
     got = trainer.evaluate(mod, trainer.make_eval_step(mod), split, len(split))
+    print(f"[eval-512] launches during evaluate: {read_launches()}")
     require(set(got) == set(ref), f"eval metric names {sorted(got)} != {sorted(ref)}")
     frame_wise = ("raw_pitch_accuracy", "raw_chroma_accuracy", "octave_difference")
     misses = []
@@ -2101,10 +2367,14 @@ def check_eval_512(cfg, dev):
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--ab-parent", metavar="PATH",
-                        help="another plane.cu (e.g. an earlier commit's) to time kernels 6 "
-                             "and 7 against, in turns")
+    parser.add_argument("--ab-parent", metavar="PATH", nargs="+", default=[],
+                        help="other plane.cu, merge.cu or refgrad.cu sources (e.g. an earlier "
+                             "commit's, chosen by file name) to time kernels 6 and 7, 4 or 5 "
+                             "against, in turns")
     args = parser.parse_args()
+    for path in args.ab_parent:
+        if os.path.basename(path) not in AB_SOURCES or not os.path.isfile(path):
+            parser.error(f"--ab-parent takes existing {', '.join(AB_SOURCES)} files: {path}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2133,23 +2403,25 @@ def main() -> int:
     batches = make_requests(cfg, dev, 1 + TIMING_INPUTS, seed=3000)
     rows = [sot_rows(mod, torch.from_numpy(b).to(dev)) for b in batches]
     alpha, beta, gaug = rows[0]
-    kernels += [check_synth_backward(cfg, dev, rng),
-                check_merge(alpha, beta, gaug, lambda: rows[1:]),
-                check_refgrad(alpha, beta, gaug, lambda: rows[1:])]
-    with np.load(GOLDEN_512) as z:
-        golden_512 = {k: z[k] for k in z.files}
-    plane_errs = plane_kernel_checks(dev, rng, golden_512)
     mod512 = build_modules(cfg512, device=dev)
     load_golden_weights(mod512, GOLDEN_512)
     rows512 = [sot_rows(mod512, torch.from_numpy(b).to(dev)) for b in batches]
     shapes = {"[1024, 258]": rows512, "[1024, 1026]": rows}
+    kernels += [check_synth_backward(cfg, dev, rng), check_merge(rows), check_merge(rows512),
+                check_refgrad(rows)]
+    check_refgrad(rows512, entry=False)
+    rank_row_checks(dev, np.random.default_rng(9))
+    rank_relaunch_check(shapes)
+    with np.load(GOLDEN_512) as z:
+        golden_512 = {k: z[k] for k in z.files}
+    plane_errs = plane_kernel_checks(dev, rng, golden_512)
     plane_relaunch_check(shapes)
     plane_entries = plane_timings(shapes)
     for entry in plane_entries:
         entry["max_abs_err"] = plane_errs[0 if entry["name"] == "sot_plane_forward" else 1]
     kernels += plane_entries
-    if args.ab_parent:
-        plane_ab(args.ab_parent, shapes)
+    for path in args.ab_parent:
+        (plane_ab if os.path.basename(path) == "plane.cu" else rank_ab)(path, shapes)
     kernels += [check_coupling_grads(alpha, beta, gaug, lambda: rows[1:], rng, dev),
                 check_stft_frontend(dev, rng)] + check_conv(dev, rng)
 
@@ -2187,10 +2459,11 @@ def main() -> int:
             f"the gated SOT-2048 steps launched kernels 10 / 11 {conv_launches} times, "
             f"expected {4 * TRAIN_STEPS} / {2 * TRAIN_STEPS}")
     conv_gate_ab(cfg, dev, x_all)
-    # each kernel's count from the run whose main path it is on (kernels 6
-    # and 7 at each loss shape: SOT-2048 default at [1024, 1026], SOT-512
-    # default (6) and auto (7) at [1024, 258])
-    main_path = {("sot_plane_forward", "[1024, 1026]"): "SOT-2048 default",
+    # each kernel's count from the run whose main path it is on (kernel 4 at
+    # [1024, 257]: SOT-512 auto; kernels 6 and 7 at each loss shape: SOT-2048
+    # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258])
+    main_path = {("merge_coupling", "[1024, 257]"): "SOT-512 auto",
+                 ("sot_plane_forward", "[1024, 1026]"): "SOT-2048 default",
                  ("sot_plane_backward", "[1024, 1026]"): "SOT-2048 default",
                  ("sot_plane_forward", "[1024, 258]"): "SOT-512 default",
                  ("sot_plane_backward", "[1024, 258]"): "SOT-512 auto",

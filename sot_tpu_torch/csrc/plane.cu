@@ -90,6 +90,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
 constexpr int NT = 128;  // threads of a block, which walks one row
@@ -104,40 +106,12 @@ __device__ __forceinline__ float dist_pow(float d, float p) {
   return powf(a, p);
 }
 
-// Floats of one shared-memory slot: n values placed so that the first
-// 16-byte aligned element of the source lands on a 16-byte aligned address.
-__host__ __device__ __forceinline__ int slot_floats(int n) { return (n + 7) & ~3; }
-
 // Dynamic shared memory of one block: the grid, alpha and beta in slots,
 // then the lists of nonempty intervals (values, then 16-bit indices) of
 // both sides. 196656 bytes at n = 8192, within the 227 KB a block may take.
 __host__ __device__ __forceinline__ size_t smem_bytes(int n) {
   return 3 * (size_t)slot_floats(n) * sizeof(float) + 2 * (size_t)n * sizeof(float) +
          (size_t)((2 * n + 7) & ~7) * sizeof(unsigned short);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Starts the copy of src[0, n) into the slot: 16-byte cp.async where the
-// source is aligned, 4-byte ones for the head and the tail. Returns the
-// slot's element 0. The caller waits (cp.async.wait_all) and syncs.
-__device__ __forceinline__ float* copy_slot(const float* __restrict__ src, float* slot, int n) {
-  const int lead = (int)(((16u - ((unsigned)(uintptr_t)src & 15u)) & 15u) >> 2);
-  float* dst = slot + ((4 - lead) & 3);
-  const int h = min(n, lead);
-  const int m = (n - h) >> 2;
-  for (int e = threadIdx.x; e < h; e += NT)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst + e)),
-                 "l"(src + e));
-  for (int q = threadIdx.x; q < m; q += NT)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst + h + 4 * q)),
-                 "l"(src + h + 4 * q));
-  for (int e = h + 4 * m + threadIdx.x; e < n; e += NT)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst + e)),
-                 "l"(src + e));
-  return dst;
 }
 
 // Writes zeros to dst[0, n) with 16-byte stores where dst is aligned.
@@ -178,9 +152,9 @@ __device__ Tile load_tile(const float* __restrict__ alpha, const float* __restri
   Tile t;
   t.n = n;
   const size_t base = (size_t)blockIdx.x * n;
-  t.g = copy_slot(grid, smem, n);
-  float* al = copy_slot(alpha + base, smem + S, n);
-  float* be = copy_slot(beta + base, smem + 2 * S, n);
+  t.g = copy_slot<NT>(grid, smem, n);
+  float* al = copy_slot<NT>(alpha + base, smem + S, n);
+  float* be = copy_slot<NT>(beta + base, smem + 2 * S, n);
   float* v = smem + 3 * S;
   unsigned short* ix = reinterpret_cast<unsigned short*>(v + 2 * n);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -250,17 +224,11 @@ __device__ Tile load_tile(const float* __restrict__ alpha, const float* __restri
   return t;
 }
 
-// Largest p in [max(0, k - nb), min(k, na)] with alpha'_{p-1} <= beta'_{k-p}
-// over the nonempty intervals: the merge path's position on diagonal k is
-// (p, k - p).
-__device__ __forceinline__ int corank(const Tile& t, int k) {
-  int lo = max(0, k - t.nb), hi = min(k, t.na);
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (t.v[mid - 1] <= t.v[t.n + k - mid]) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
+// A nonempty row goes before a nonempty column on the merge path where
+// alpha_i <= beta_j (ties to alpha).
+struct AlphaFirst {
+  __device__ __forceinline__ bool operator()(float a, float b) const { return a <= b; }
+};
 
 // The walk's cursor: the position (p, q) on the lists, the row i and column
 // j they are, and the values there. Past the last nonempty row (column), i
@@ -327,7 +295,7 @@ __device__ __forceinline__ void slice(const Tile& t, int* k0, int* k1) {
 // for the first slice (which then takes no step into its first position).
 __device__ __forceinline__ Cursor slice_start(const Tile& t, int k0) {
   if (k0 == 0) return cursor_at(t, 0, 0);
-  const int p = corank(t, k0 - 1);
+  const int p = corank(t.v, t.na, t.nb, t.n, k0 - 1, AlphaFirst());
   return cursor_at(t, p, k0 - 1 - p);
 }
 

@@ -1,6 +1,6 @@
-// Block-wide float64 scans of csrc/merge.cu. Fixed
-// orders (warp shuffles, then the warp totals) and no atomics, so two runs
-// agree bit for bit. Every thread of the block must make the call.
+// The block-wide float64 scan of csrc/merge.cu's coupling gradient (kernel
+// 8). A fixed order (warp shuffles, then the warp totals) and no atomics, so
+// two runs agree bit for bit. Every thread of the block must make the call.
 
 #pragma once
 
@@ -39,18 +39,4 @@ __device__ double block_excl_scan(double v, double* warp_buf, double* total = nu
   if (total != nullptr) *total = warp_buf[NWARPS - 1];
   __syncthreads();
   return out;
-}
-
-// Exclusive suffix of v over the block's threads (the sum over the threads
-// after this one): the same scan over the mirrored thread order. mirror: NT
-// doubles of shared memory.
-template <int NT>
-__device__ double block_excl_suffix(double v, double* warp_buf, double* mirror) {
-  const int tid = threadIdx.x;
-  mirror[tid] = v;
-  __syncthreads();
-  const double rev = block_excl_scan<NT>(mirror[NT - 1 - tid], warp_buf);
-  mirror[NT - 1 - tid] = rev;
-  __syncthreads();
-  return mirror[tid];
 }

@@ -21,8 +21,13 @@ three routes at the cap-tie kinks by design (PERF.md, "The
 gradient-convention lesson").
 
 Bounds on the H100: bytes (the forward reads 8.4 MB at [1024, 1025],
-~2.5 us; the gradient also writes db, ~3.8 us). One block per row, binary
-searches with float64 prefix sums in shared memory; see the source.
+~2.5 us; the gradient also writes db, ~3.8 us). The value: a block of
+``THREADS_PER_ROW`` threads per row walks the merge path of a and b in
+equal slices, one co-rank search each, every element's term x a PX[count]
+in float64; a row that is not nonincreasing on either side
+(``unsorted_rows``) is summed over all pairs. The gradient: one block per
+row, binary searches with float64 prefix sums in shared memory. See the
+source.
 
 On a CPU tensor ``coupling`` and ``coupling_grads`` run their plain
 versions; on a CUDA tensor they launch the kernel or raise. Neither has an
@@ -46,6 +51,8 @@ launches = 0        # the coupling value, kernel B4
 grad_launches = 0   # the coupling gradient, kernel B8
 
 _MAX_COLS = 8192
+# threads of a block of the coupling value, which walks one row
+THREADS_PER_ROW = 128
 # cells of one dense chunk of the gradient's full scan (rows that are not sorted)
 _CHUNK_CELLS = 1 << 22
 
@@ -64,6 +71,14 @@ def coupling_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.T
     Y = prefix_sum(torch.gather(wb, -1, order), axis=-1)
     widths = t - torch.cat([t[:, 1:], torch.zeros_like(t[:, :1])], dim=-1)
     return torch.sum(X * Y * widths, dim=-1)
+
+
+def unsorted_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[rows] bool: the rows the coupling value sums over all m x m pairs,
+    where a or b is not nonincreasing or holds a NaN."""
+    def bad(s):
+        return ~(s[:, 1:] <= s[:, :-1]).all(-1) | torch.isnan(s[:, 0])
+    return bad(a) | bad(b)
 
 
 def _side_grad_plain(s: torch.Tensor, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -19,10 +19,17 @@ of ``_assemble`` (see ``sot_tpu/ops/pallas/refgrad.py`` for the derivation).
   * the O(n^2) oracle is the plane backward's plain version,
     ``ops/kernels/plane.sot_plane_backward_plain``
 
-Bound on the H100: bytes (12.6 MB at [1024, 1026], ~3.8 us). One block per
-row with alpha, beta and the grid in shared memory and two binary searches
-per query; every rounding as in the plain version, so the two agree bit
-for bit on the same inputs.
+alpha must be nondecreasing (a clipped CDF), as ``torch.searchsorted``
+requires in the plain version; a row of alpha that is not is outside the
+contract. beta may be in any order.
+
+Bound on the H100: bytes (12.6 MB at [1024, 1026], ~3.8 us). A block of
+256 threads per row, a warp on 32 neighbouring columns: a
+column whose flags vne_j and vne_{j+1} are both 0 gets a zero; on the
+others a binary search of alpha gives the ranks and the closed form keeps
+every rounding of the plain version. The two agree under ``==`` (and
+``torch.equal``) on the same inputs, bit for bit wherever the result is
+not a zero; a zero may carry the other sign.
 """
 
 from __future__ import annotations

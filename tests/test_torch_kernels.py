@@ -508,6 +508,86 @@ def test_plane_launch_counters_count_kernel_launches_on_card():
     assert (kplane.launches, kplane.backward_launches) == (before[0] + 1, before[1] + 2)
 
 
+def _refgrad_rows(kind, n):
+    """(alpha, beta, g, wbar) float32 numpy for the kernel 5 and 4 cases."""
+    rng = np.random.default_rng(n)
+    if kind == "random":
+        return chip_smoke.random_plane_rows(rng, 1024 if n <= 1026 else 8, n)
+    if kind == "stress":
+        return chip_smoke.stress_plane_rows(256, n)
+    if kind == "dyadic":
+        return chip_smoke.dyadic_plane_rows(rng, 64 if n <= 1026 else 8, n)
+    alpha, beta, g, wbar = chip_smoke.random_plane_rows(rng, 64, n)
+    return alpha, rng.permuted(beta, axis=-1), g, wbar  # beta unsorted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("random", 258), ("random", 1026), ("stress", 258),
+                                    ("stress", 1026), ("dyadic", 1026), ("beta unsorted", 258),
+                                    ("dyadic", 1), ("dyadic", 2), ("dyadic", 8192),
+                                    ("dyadic", 8193), ("random", 16384)])
+def test_refgrad_kernel_equal_to_plain_on_card(kind, n):
+    """Kernel 5 against its plain version: equal (torch.equal) and bit for
+    bit wherever the result is not a zero, on sorted rows, rows whose beta
+    is not sorted and the narrowest and widest rows the wrapper takes."""
+    _need_cuda()
+    if n == 1:
+        arrays = (np.full((64, 1), 0.5, np.float32), np.full((64, 1), 0.25, np.float32),
+                  np.zeros(1, np.float32), np.ones(64, np.float32))
+    else:
+        arrays = _refgrad_rows(kind, n)
+    alpha, beta, g, wbar = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+    got = krefgrad.ref_grad_beta(alpha, beta, g, wbar)
+    ref = krefgrad.ref_grad_beta_plain(alpha, beta, g, wbar)
+    torch.cuda.synchronize()
+    nonzero = ref != 0
+    assert torch.equal(got, ref)
+    assert torch.equal(got.view(torch.int32)[nonzero], ref.view(torch.int32)[nonzero])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("random", 258), ("random", 1026), ("stress", 258),
+                                    ("stress", 1026), ("a unsorted", 258), ("b unsorted", 258),
+                                    ("both unsorted", 1026), ("dyadic", 2), ("dyadic", 3),
+                                    ("dyadic", 8193)])
+def test_coupling_kernel_matches_plain_on_card(kind, n):
+    """Kernel 4 against its plain version within chip_smoke's 1e-5 per row:
+    the walk on sorted rows, the all-pairs sum on rows unsorted on either
+    side (permuted complements of sorted rows: the coupling's inputs are
+    >= 0), m = 1, 2 and 8192 (the most shared memory a block needs)."""
+    _need_cuda()
+    rows = _refgrad_rows("random" if "unsorted" in kind else kind, n)
+    a, b, x = chip_smoke.complements(*(torch.from_numpy(np.ascontiguousarray(t)) for t in rows[:3]))
+    rng = np.random.default_rng(0)
+    if kind in ("a unsorted", "both unsorted"):  # permuted complements stay >= 0
+        a = torch.from_numpy(rng.permuted(a.numpy(), axis=-1))
+    if kind in ("b unsorted", "both unsorted"):
+        b = torch.from_numpy(rng.permuted(b.numpy(), axis=-1))
+    a, b, x = a.cuda(), b.cuda(), x.cuda()
+    got = kmerge.coupling(a, b, x)
+    ref = kmerge.coupling_plain(a, b, x)
+    torch.cuda.synchronize()
+    scale = ref.abs().clamp(min=1e-12 * float(ref.abs().max()))
+    assert bool(torch.isfinite(got).all())
+    assert float(((got - ref).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [258, 1026])
+def test_rank_kernels_bit_equal_across_launches_on_card(n):
+    """Two launches of kernels 4 and 5 on the same rows: bit-equal (fixed
+    summation orders, no atomics)."""
+    _need_cuda()
+    alpha, beta, g, wbar = (torch.from_numpy(a).cuda()
+                            for a in chip_smoke.random_plane_rows(np.random.default_rng(n), 1024,
+                                                                  n))
+    a, b, x = chip_smoke.complements(alpha, beta, g)
+    runs = [(kmerge.coupling(a, b, x), krefgrad.ref_grad_beta(alpha, beta, g, wbar))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
 def test_plane_wrappers_take_plain_version_on_cpu():
     arrays = _plane_on("cpu", chip_smoke.dyadic_plane_rows(np.random.default_rng(0), 16, 40))
     before = (kplane.launches, kplane.backward_launches)

@@ -58,8 +58,8 @@ def nonempty(x):
 
 
 def corank(al, be, ia, jb, k: int) -> int:
-    """plane.cu:corank over the nonempty intervals: the largest p with
-    alpha'_{p-1} <= beta'_{k-p}."""
+    """rows.cuh:corank as plane.cu calls it, over the nonempty intervals:
+    the largest p with alpha'_{p-1} <= beta'_{k-p}."""
     lo, hi = max(0, k - len(jb)), min(k, len(ia))
     while lo < hi:
         mid = (lo + hi + 1) >> 1
