@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the SOT-2048 serving
 path (predict), the SOT-2048 train step, the SOT-512 family's train step
-and evaluation, and the gated train step (the ``full`` merge route, the
+and evaluation, SOT-2048 evaluation with the pitch corrections, and the
+gated train step (the ``full`` merge route, the
 STFT frontend and the conv kernels: ``KernelGates(w2_merge="full",
 conv=True, stft_frontend=True)``).
 
@@ -63,15 +64,19 @@ Phases (any failure raises and the script exits non-zero):
                per row, the rows on the full-scan path and the walk's slice
                balance), the A/B of the two SOT-512 backward routes (kernel
                5 against kernel 7); with --ab-parent PATH ..., kernels 6 and
-               7, 4 or 5 built from another plane.cu, merge.cu or refgrad.cu
-               (an earlier commit's, chosen by file name) against this one,
-               the outputs first (kernel 5 equal, kernel 4 within
-               COUPLING_LIMIT and its ulps printed), then timed in turns,
-               old, new, new, old; the gated
+               7, 4 and 8 or 5 built from another plane.cu, merge.cu or
+               refgrad.cu (an earlier commit's, chosen by file name) against
+               this one, the outputs first (kernel 5 equal, kernels 4 and 8
+               within COUPLING_LIMIT and COUPLING_GRAD_LIMIT, their ulps
+               printed), then timed in turns, old, new, new, old; the gated
                path's kernels:
-               the coupling gradient (kernel 8, alpha_grads both ways) on
-               the real SOT rows within COUPLING_GRAD_LIMIT, bit for bit on
-               dyadic tie rows, on unsorted rows; the STFT frontend (kernel
+               the coupling gradient (kernel 8, alpha_grads both ways) at
+               both loss shapes ([1024, 1025] and [1024, 257]) on the real
+               SOT rows within COUPLING_GRAD_LIMIT, bit for bit on dyadic
+               tie rows, on unsorted rows, its binary searches counted; bit
+               for bit on its stress rows (all zeros, a = b, one distinct
+               value) and at m = 1, 2 and 8192; two launches bit-equal at
+               both shapes (with kernels 4 and 5); the STFT frontend (kernel
                9) at each (n_fft, hop) of the gated steps within
                FRONTEND_LIMIT, its error against a float64 projection at
                most 2x the plain version's; the conv forward and dx (kernel 10) and
@@ -86,7 +91,8 @@ Phases (any failure raises and the script exits non-zero):
                golden's 128 real SOT rows against the JAX kernels' outputs
                (W within 3e-5 of the marginal terms, the beta cotangent
                within 2e-5 of its max) and against their plain versions
-               (kernel 4 within COUPLING_LIMIT, kernel 5 equal);
+               (kernel 4 within COUPLING_LIMIT, kernel 5 equal, kernel 8
+               within COUPLING_GRAD_LIMIT);
                compute_loss's loss and both terms
                within 1e-4 rel; each term's gradient per parameter leaf
                (max|d|/max and cosine, limits in GRAD_LIMITS and
@@ -105,6 +111,15 @@ Phases (any failure raises and the script exits non-zero):
                golden's 64 clips against JAX's stored metrics: LSD, MSE,
                MSS and the loss terms within EVAL_REL, the pitch accuracies
                and the octave difference within one frame
+ 9a. eval-2048 — the same for the SOT-2048 weights in the three forms of
+               sot_tpu/cli.py's --final-eval (plain, eval_octave_correction,
+               eval_comb_correction) against sot2048_seed42_eval.npz; both
+               corrections' clip factors on the golden's pitches times 1,
+               0.5, 2, 2/3 and 1.5 equal to JAX's on every clip, the
+               quantities their decisions compare within DECISION_REL;
+               predict with inference_comb_correction under auto (pitch
+               within 1e-3 of JAX's) and GATED (the correction's STFT on
+               kernel 9), its comb factors on JAX's pitches equal to JAX's
  9b. train-golden-gated — the same for sot2048_seed42_trainstep_gated.npz
                (JAX with SOT_TPU_W2_MERGE=1, SOT_TPU_STFT_PALLAS=1,
                SOT_TPU_CONV_PALLAS=1) against the port under GATED: kernel 8
@@ -145,6 +160,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -158,6 +174,7 @@ import numpy as np
 import torch
 
 from sot_tpu_torch import data as data_lib
+from sot_tpu_torch import metrics as metrics_lib
 from sot_tpu_torch.configs import get_experiment
 from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat, params_from_flax,
                                    params_to_flax)
@@ -187,6 +204,7 @@ GOLDEN_TRAIN = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot2048_seed42_tra
 GOLDEN_512 = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot512_seed42_trainstep.npz")
 GOLDEN_GATED = os.path.join(ROOT, "sot_tpu_torch", "golden",
                             "sot2048_seed42_trainstep_gated.npz")
+GOLDEN_EVAL = os.path.join(ROOT, "sot_tpu_torch", "golden", "sot2048_seed42_eval.npz")
 
 # H100 SXM data sheet (dense): FP32 on the CUDA cores, bf16 and TF32 on the
 # tensor cores, HBM3 bandwidth.
@@ -266,6 +284,15 @@ PLANE_LIMITS = (1e-6, 1e-6)
 # one frame of the 64 x 16
 EVAL_REL = 1e-3
 EVAL_FRAME = 1.0 / (BATCH * 16)
+# [eval-2048]: the forms of evaluate that sot_tpu/cli.py's --final-eval
+# writes (plain, octave-corrected, comb-corrected), and the pitch shifts the
+# golden holds the corrections' factors at (every branch fires)
+EVAL_FORMS = {"plain": {}, "octcorr": {"eval_octave_correction": True},
+              "comb": {"eval_comb_correction": True}}
+CORRECTION_SHIFTS = {"1": 1.0, "0.5": 0.5, "2": 2.0, "2/3": 2.0 / 3.0, "1.5": 1.5}
+# the quantities the corrections' decisions compare (band peaks, scores,
+# the median pitch) against JAX's on the CPU: max|d| over their max
+DECISION_REL = 1e-5
 # The gated path: the full merge route (kernels 4 + 8), the STFT frontend
 # (kernel 9), the k > 1 convs on kernels 10 and 11 with bf16 operands
 GATED = KernelGates(w2_merge="full", conv=True, stft_frontend=True)
@@ -736,9 +763,10 @@ def sot_rows_errors(g, dev, route):
 
 
 def rank_golden_check(g, dev, phase):
-    """Kernels 4 and 5 on the golden's real rows against their plain
+    """Kernels 4, 5 and 8 on the golden's real rows against their plain
     versions: S per row within COUPLING_LIMIT, the beta cotangent equal
-    (``refgrad_equal``)."""
+    (``refgrad_equal``), the coupling gradient within COUPLING_GRAD_LIMIT
+    (``coupling_grads_case``)."""
     alpha, beta, gaug = (torch.from_numpy(g[k]).to(dev)
                          for k in ("sot_alpha", "sot_beta", "sot_gaug"))
     a, b, x = complements(alpha, beta, gaug)
@@ -749,6 +777,7 @@ def rank_golden_check(g, dev, phase):
     rows = alpha.shape[0]
     refgrad_equal(f"{phase} golden", alpha, beta, gaug,
                   torch.full((rows,), 1.0 / rows, device=dev))
+    coupling_grads_case(f"{phase} golden", a, b, x, False)
 
 
 def loss_and_grads(mod, x):
@@ -1362,12 +1391,13 @@ EDGE_KINDS = ("n=1", "n=2", "q=0, alpha_0=0", "cap plateau", "beta = alpha", "al
 
 
 def rank_row_checks(dev, rng):
-    """[kernels] for kernels 4 and 5 on rows that are not the smoke's:
+    """[kernels] for kernels 4, 5 and 8 on rows that are not the smoke's:
     kernel 4 on unsorted rows (the complements of sorted rows permuted on
     either side and both, so that they stay >= 0: the all-pairs path),
     stress rows and edge rows within COUPLING_LIMIT per row; kernel 5
     bit-equal on stress rows, edge rows and rows whose beta is not sorted
-    (the per-query searches)."""
+    (the per-query searches); kernel 8 bit for bit on its stress rows
+    (``grad_stress_rows``) and on dyadic rows at m = 1, 2 and 8192."""
     def on(arrays):
         return [torch.from_numpy(np.ascontiguousarray(t)).to(dev) for t in arrays]
 
@@ -1400,22 +1430,27 @@ def rank_row_checks(dev, rng):
         refgrad_equal(f"beta unsorted n={n}", *on((al, rng.permuted(be, axis=-1), g, w)))
     for k in EDGE_KINDS:
         refgrad_equal(f"edge ({k})", *on(edge_sot_rows(k)))
+    for k in GRAD_STRESS_KINDS:
+        coupling_grads_case(f"stress ({k})", *on(grad_stress_rows(k, BATCH * 16, 1025)), True)
+    for m in (1, 2, 8192):
+        coupling_grads_case(f"edge (m={m})", *complements(*on(dyadic_plane_rows(
+            rng, BATCH if m < 8192 else 8, m + 1)[:3])), True)
 
 
 def rank_relaunch_check(shapes):
-    """Kernels 4 and 5 twice on the same real SOT rows of each loss shape:
+    """Kernels 4, 5 and 8 twice on the same real SOT rows of each loss shape:
     bit-equal (fixed summation orders, no atomics)."""
     for tag, rows in shapes.items():
         alpha, beta, gaug = rows[0]
         wbar = torch.full((alpha.shape[0],), 1.0 / alpha.shape[0], device=alpha.device)
         a, b, x = complements(alpha, beta, gaug)
-        runs = [(kmerge.coupling(a, b, x), krefgrad.ref_grad_beta(alpha, beta, gaug, wbar))
-                for _ in range(2)]
+        runs = [(kmerge.coupling(a, b, x), krefgrad.ref_grad_beta(alpha, beta, gaug, wbar),
+                 *kmerge.coupling_grads(a, b, x, True)) for _ in range(2)]
         torch.cuda.synchronize()
-        equal = [torch.equal(u, v) for u, v in zip(*runs)]
-        print(f"[kernels] merge coupling and refgrad {tag} real rows, two launches: S, dbeta "
-              f"bit-equal {equal}")
-        require(all(equal), f"kernels 4 and 5 differ between two launches at {tag}")
+        equal = [torch.equal(u.view(torch.int32), v.view(torch.int32)) for u, v in zip(*runs)]
+        print(f"[kernels] merge coupling, refgrad and coupling gradient {tag} real rows, two "
+              f"launches: S, dbeta, dS/da, dS/db bit-equal {equal}")
+        require(all(equal), f"kernels 4, 5 and 8 differ between two launches at {tag}")
 
 
 def dyadic_plane_rows(rng: np.random.Generator, rows: int, n: int):
@@ -1480,6 +1515,31 @@ def stress_plane_rows(rows: int, n: int, seed: int = 0):
     g = np.linspace(0.0, 1.0, n)
     wbar = rng.random(rows) + 0.5
     return tuple(a.astype(np.float32) for a in (alpha, beta, g, wbar))
+
+
+GRAD_STRESS_KINDS = ("all zeros", "a = b", "one distinct value")
+
+
+def grad_stress_rows(kind: str, rows: int, m: int, seed: int = 0):
+    """(a, b, x) float32 numpy for kernel 8 on dyadic grid deltas (multiples
+    of 2^-10, some 0): "all zeros" (every query ties every element), "a =
+    b" (the complements of random sorted CDFs, b a copy of a) and "one
+    distinct value" (a constant; b the same constant on even rows, above
+    it on odd ones)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, 4, m) / 1024.0).astype(np.float32)
+    if kind == "all zeros":
+        a = b = np.zeros((rows, m), np.float32)
+    elif kind == "a = b":
+        alpha = random_plane_rows(rng, rows, m + 1)[0]
+        a = alpha[:, -1:] - alpha[:, :-1]
+        b = a.copy()
+    elif kind == "one distinct value":
+        a = np.full((rows, m), 0.5, np.float32)
+        b = np.where(np.arange(rows)[:, None] % 2 == 0, 0.5, 0.75) + np.zeros((1, m))
+    else:
+        raise ValueError(kind)
+    return tuple(np.ascontiguousarray(t, dtype=np.float32) for t in (a, b, x))
 
 
 def plane_outputs(alpha, beta, g, wbar, p, fwd, bwd):
@@ -1745,7 +1805,8 @@ def build_parent(parent_src: str, name: str, ours):
     bound library ``ours``."""
     import ctypes
     src = os.path.abspath(parent_src)
-    lib_path = os.path.join(str(_build.BUILD_DIR), f"lib{name}_ab_parent.so")
+    tag = hashlib.sha256(src.encode()).hexdigest()[:8]  # one library per parent source
+    lib_path = os.path.join(str(_build.BUILD_DIR), f"lib{name}_ab_parent_{tag}.so")
     out = subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, *_build.COMMON_FLAGS,
                           "-I", str(_build.CSRC), "-o", lib_path, src],
                          capture_output=True, text=True, timeout=600)
@@ -1753,7 +1814,7 @@ def build_parent(parent_src: str, name: str, ours):
             f"the parent's {name}.cu did not build:\n{out.stdout}{out.stderr}")
     lib = ctypes.CDLL(lib_path)
     for fn in ("sot_plane_forward_f32", "sot_plane_backward_f32", "coupling_forward_f32",
-               "refgrad_beta_f32"):
+               "coupling_grads_f32", "refgrad_beta_f32"):
         if hasattr(ours, fn):
             getattr(lib, fn).argtypes = getattr(ours, fn).argtypes
     return lib
@@ -1815,11 +1876,13 @@ def ulps(got, ref) -> int:
 
 
 def rank_ab(parent_src: str, shapes) -> None:
-    """[timing] kernel 4 (parent merge.cu) or kernel 5 (parent refgrad.cu)
-    built from ``parent_src`` against this checkout's, device ms in turns
-    old, new, new, old on the real SOT rows of each loss shape; the outputs
-    of the two compared first: kernel 5 equal (torch.equal), kernel 4
-    within COUPLING_LIMIT per row, the most ulps between them printed."""
+    """[timing] kernels 4 and 8 (parent merge.cu) or kernel 5 (parent
+    refgrad.cu) built from ``parent_src`` against this checkout's, device
+    ms in turns old, new, new, old on the real SOT rows of each loss shape;
+    the outputs of the two compared first: kernel 5 equal (torch.equal),
+    kernel 4 within COUPLING_LIMIT per row, kernel 8 within
+    COUPLING_GRAD_LIMIT (``grad_ab``), the most ulps between them
+    printed."""
     name = os.path.basename(parent_src)[:-len(".cu")]
     old = build_parent(parent_src, name, (kmerge if name == "merge" else krefgrad)._bind())
     stream = torch.cuda.current_stream
@@ -1864,6 +1927,38 @@ def rank_ab(parent_src: str, shapes) -> None:
         print(f"[timing] A/B {name}.cu {tag} {label}, device ms in turns old, new, new, old: "
               f"{', '.join(f'{t:.4f}' for t in turns)}; old / new "
               f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x (outputs: {outputs}) | {card}")
+        if name == "merge":
+            grad_ab(old, inputs, tag, card)
+
+
+def grad_ab(old, inputs, tag, card) -> None:
+    """[timing] kernel 8 from the parent's merge.cu against this
+    checkout's on the real SOT rows ``inputs`` ((a, b, x) of each batch),
+    db only as training calls it: the outputs first (equal, or within
+    COUPLING_GRAD_LIMIT with the most ulps between them printed), then
+    device ms in turns old, new, new, old."""
+    def old8(a, b, x):
+        db = torch.empty_like(b)
+        _build.check(old.coupling_grads_f32(a.data_ptr(), b.data_ptr(), x.data_ptr(), None,
+                                            db.data_ptr(), *a.shape,
+                                            torch.cuda.current_stream().cuda_stream),
+                     "parent coupling_grads_f32")
+        return db
+
+    def new8(a, b, x):
+        return kmerge.coupling_grads(a, b, x, False)[1]
+
+    got_old, got_new = old8(*inputs[0]), new8(*inputs[0])
+    torch.cuda.synchronize()
+    rel = max_rel(got_new, got_old)
+    bits = torch.equal(got_new.view(torch.int32), got_old.view(torch.int32))
+    require(rel <= COUPLING_GRAD_LIMIT, f"the parent's kernel 8 disagrees at {tag}")
+    turns = [device_ms(f, inputs, "coupling_grad_kernel") for f in (old8, new8, new8, old8)]
+    print(f"[timing] A/B merge.cu {tag} kernel 8 (db only), device ms in turns old, new, new, "
+          f"old: {', '.join(f'{t:.4f}' for t in turns)}; old / new "
+          f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x (outputs: dS/db max|d|/max "
+          f"{rel:.3e} (limit {COUPLING_GRAD_LIMIT}), bit for bit {bits}, at most "
+          f"{ulps(got_new, got_old)} ulps apart) | {card}")
 
 
 def plain_synth_vjp(amps, freqs, dout, t, sr):
@@ -1986,35 +2081,60 @@ def coupling_grads_case(what, a, b, x, exact):
     return max(float((g - r).abs().max()) for g, r in pairs)
 
 
-def check_coupling_grads(alpha, beta, gaug, make_inputs, rng, dev):
-    """[kernels] and [timing] for B8: the real SOT rows, dyadic tie-heavy rows
-    bit for bit (every prefix sum of the grid deltas is exact, and the
-    result depends on a and b only through comparisons), unsorted rows (the
-    full scan); timed without alpha gradients, as the train step calls it."""
-    a, b, x = complements(alpha, beta, gaug)
+def grad_plan_searches(a, b) -> int:
+    """The binary searches of kernel 8's db side (merge.cu) on sorted rows:
+    per warp of a row's 128 threads (32-column chunks w, w + 4, ...), one
+    for each run of equal queries b along its columns and one more for each
+    run whose value ties a value of a short of a's end."""
+    cols = torch.arange(b.shape[1], device=b.device)
+    warp = (cols // 32) % 4
+    order = torch.argsort(warp * b.shape[1] + cols)  # each warp's columns, in its order
+    bw, ww = b[:, order], warp[order]
+    head = torch.ones_like(bw, dtype=torch.bool)
+    head[:, 1:] = (bw[:, 1:] != bw[:, :-1]) | (ww[1:] != ww[:-1])
+    neg_a, neg_b = (-a).contiguous(), (-bw).contiguous()
+    tie = (torch.searchsorted(neg_a, neg_b, right=True)
+           > torch.searchsorted(neg_a, neg_b, right=False)) & (bw != a[:, -1:])
+    return int(head.sum() + (head & tie).sum())
+
+
+def check_coupling_grads(rows, rng, dev):
+    """[kernels] and [timing] for kernel 8 at one loss shape, on the real SOT
+    rows ``rows`` (a list of (alpha, beta, gaug); the first checked, the rest
+    timed): dyadic tie-heavy rows at the same width bit for bit (every
+    prefix sum of the grid deltas is exact, and the result depends on a and
+    b only through comparisons), unsorted rows (the whole-row scan); timed
+    without alpha gradients, as the train step calls it. Returns its JSON
+    entry."""
+    a, b, x = complements(*rows[0])
+    nrows, m = a.shape
+    tag = f"[{nrows}, {m}]"
     err = coupling_grads_case(f"SOT rows of {BATCH} clips (real)", a, b, x, False)
-    dy = [torch.from_numpy(t).to(dev) for t in dyadic_plane_rows(rng, BATCH * 16, 1026)[:3]]
+    dy = [torch.from_numpy(t).to(dev) for t in dyadic_plane_rows(rng, BATCH * 16, m + 1)[:3]]
     coupling_grads_case("dyadic tie-heavy", *complements(*dy), True)
     un = [torch.from_numpy(t).to(dev) for t in random_plane_rows(rng, BATCH, 258, sort=False)[:3]]
     err = max(err, coupling_grads_case("unsorted", *complements(*un), False))
+    searches = grad_plan_searches(a, b)
+    print(f"[kernels] coupling gradient (B8) {tag} real rows: {searches} binary searches for "
+          f"{nrows * m} columns ({searches / (nrows * m):.4f} a column)")
 
-    inputs = [complements(*r) + (False,) for r in make_inputs()]
+    inputs = [complements(*r) + (False,) for r in rows[1:]]
     ms = median_ms(kmerge.coupling_grads, inputs)
     dev_ms = device_ms(kmerge.coupling_grads, inputs, "coupling_grad_kernel")
     plain_ms = median_ms(kmerge.coupling_grads_plain, inputs)
-    rows, m = a.shape
-    # reads a, b and x once, writes db; per element two binary searches of
-    # log2(m) compares and the product with x
-    bound_ms, bound_by = roofline(rows * m * (2 * math.log2(m) + 3),
-                                  4.0 * (2 * rows * m + m + rows * m))
-    print(f"[timing] coupling_grads (B8) {tuple(a.shape)}, no alpha gradients: {ms:.4f} ms "
-          f"(device {dev_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}) | "
+    # reads a, b and x once, writes db; per column the head test (a compare)
+    # and the result's three float64 operations, per search of this run's
+    # rows ~log2(m) steps of a compare and two integer operations
+    flops = nrows * m * 4 + searches * math.ceil(math.log2(m + 1)) * 3
+    bound_ms, bound_by = roofline(flops, 4.0 * (2 * nrows * m + m + nrows * m))
+    print(f"[timing] coupling_grads (B8) {tag}, no alpha gradients: {ms:.4f} ms (device "
+          f"{dev_ms:.4f}), plain {plain_ms:.4f}, bound {bound_ms:.4f} ({bound_by}) | "
           f"{card_line()}")
     return {
-        "name": "coupling_grads", "route": "cuda", "source": "sot_tpu_torch/csrc/merge.cu",
-        "replaces": "sot_tpu/ops/pallas/merge.py:235", "max_abs_err": err, "ms": ms,
-        "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "name": "coupling_grads", "shape": tag, "route": "cuda",
+        "source": "sot_tpu_torch/csrc/merge.cu", "replaces": "sot_tpu/ops/pallas/merge.py:235",
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
 
@@ -2350,6 +2470,13 @@ def check_eval_512(cfg, dev):
     reset_launches()
     got = trainer.evaluate(mod, trainer.make_eval_step(mod), split, len(split))
     print(f"[eval-512] launches during evaluate: {read_launches()}")
+    eval_metrics_check("eval-512", got, ref)
+
+
+def eval_metrics_check(phase, got, ref) -> None:
+    """The port's ``evaluate`` metrics against JAX's: LSD, MSE, MSS and the
+    loss terms within EVAL_REL, the pitch accuracies and the octave
+    difference within one frame (EVAL_FRAME)."""
     require(set(got) == set(ref), f"eval metric names {sorted(got)} != {sorted(ref)}")
     frame_wise = ("raw_pitch_accuracy", "raw_chroma_accuracy", "octave_difference")
     misses = []
@@ -2357,11 +2484,109 @@ def check_eval_512(cfg, dev):
         d = abs(got[k] - ref[k])
         ok = d <= EVAL_FRAME + 1e-7 if k in frame_wise else d <= EVAL_REL * abs(ref[k])
         misses += [] if ok else [k]
-        print(f"[eval-512] {k}: port {got[k]:.6f} JAX {ref[k]:.6f} |d| {d:.3e} ("
+        print(f"[{phase}] {k}: port {got[k]:.6f} JAX {ref[k]:.6f} |d| {d:.3e} ("
               + (f"limit {EVAL_FRAME:.3e}, one frame)" if k in frame_wise
                  else f"rel {d / abs(ref[k]):.3e}, limit {EVAL_REL})"))
-    require(all(math.isfinite(v) for v in got.values()), "non-finite eval metrics")
-    require(not misses, f"eval metrics disagree with JAX: {misses}")
+    require(all(math.isfinite(v) for v in got.values()), f"{phase}: non-finite eval metrics")
+    require(not misses, f"{phase}: eval metrics disagree with JAX: {misses}")
+
+
+def eval_golden():
+    """The SOT-2048 evaluation golden (``tests/_torch_golden_eval2048.py``)
+    and the predict golden's clips and f0."""
+    with np.load(GOLDEN_EVAL) as z:
+        g = {k: z[k] for k in z.files}
+    with np.load(GOLDEN) as z:
+        g["x"], g["f0"] = z["x"], z["f0"]
+    return g
+
+
+def eval_2048_form(cfg, dev, form, g) -> None:
+    """[eval-2048] one form: the port's ``evaluate`` with the SOT-2048
+    seed-42 weights on the 64 clips against JAX's (``eval_metrics_check``)."""
+    mod = build_modules(cfg.replace(**EVAL_FORMS[form]), device=dev)
+    load_golden_weights(mod)
+    split = data_lib.SplitArrays(g["x"], g["f0"], np.zeros((len(g["x"]), 1), np.float32))
+    reset_launches()
+    got = trainer.evaluate(mod, trainer.make_eval_step(mod), split, len(split))
+    print(f"[eval-2048] {form}: launches during evaluate: {read_launches()}")
+    eval_metrics_check(f"eval-2048 {form}", got,
+                       {k[len(f"eval/{form}/"):]: float(g[k]) for k in g
+                        if k.startswith(f"eval/{form}/")})
+
+
+def correction_factors_check(mod, g, shift: str) -> None:
+    """[eval-2048] both corrections on the golden's pitches times
+    CORRECTION_SHIFTS[shift] with ``mod``'s thresholds and STFT gate: the
+    clip factors equal to JAX's on every clip (a clip that flips is named),
+    the quantities each decision compares within DECISION_REL of JAX's."""
+    x = torch.from_numpy(g["x"]).to(mod.device)
+    p = torch.from_numpy((g["pitch_hz"] * np.float32(CORRECTION_SHIFTS[shift]))
+                         .astype(np.float32)).to(mod.device)
+    kwargs = trainer.correction_kwargs(mod)
+    for kind, fn, extra in (("octave", metrics_lib.octave_factors, {}),
+                            ("comb", metrics_lib.comb_factors,
+                             {"margin": mod.config.comb_correction_margin})):
+        factor, quantities = fn(x, p, **kwargs, **extra)
+        factor = factor.cpu().numpy()
+        ref = g[f"{kind}/{shift}/factor"]
+        flips = [f"clip {i}: port {factor[i]} JAX {ref[i]}" for i in np.flatnonzero(factor != ref)]
+        errs = {k: float(np.abs(v.cpu().numpy() - g[f"{kind}/{shift}/{k}"]).max()
+                         / max(float(np.abs(g[f"{kind}/{shift}/{k}"]).max()), 1e-30))
+                for k, v in quantities.items()}
+        print(f"[eval-2048] {kind} correction, pitch x{shift}: factors "
+              f"{dict(zip(*(t.tolist() for t in np.unique(ref, return_counts=True))))}, equal on "
+              f"{len(ref) - len(flips)} of {len(ref)} clips; decision quantities max|d|/max "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (limit {DECISION_REL})")
+        require(not flips, f"{kind} correction x{shift}: factors differ from JAX: {flips}")
+        require(max(errs.values()) <= DECISION_REL,
+                f"{kind} correction x{shift}: decision quantities differ from JAX: {errs}")
+
+
+def predict_comb_check(cfg, dev, g, kernels) -> None:
+    """[eval-2048] ``predict`` with ``inference_comb_correction`` under
+    ``kernels``: the corrected pitch against JAX's predict (rel within 1e-3,
+    the predict golden's limit) and, from the golden's own pitches, the comb
+    factors equal to JAX's on every clip; under the STFT frontend gate, the
+    correction's STFT launches kernel 9."""
+    mod = build_modules(cfg.replace(inference_comb_correction=True), device=dev, kernels=kernels)
+    load_golden_weights(mod)
+    reset_launches()
+    x = torch.from_numpy(g["x"]).to(dev)
+    out = predict(mod, x)
+    launches = read_launches()
+    pitch = out["pitch_hz"].cpu().numpy()
+    rel = float(np.max(np.abs(pitch - g["predict_comb/pitch_hz"]) / g["predict_comb/pitch_hz"]))
+    factor, _ = metrics_lib.comb_factors(x, torch.from_numpy(g["pitch_hz"]).to(dev),
+                                         margin=cfg.comb_correction_margin,
+                                         **trainer.correction_kwargs(mod))
+    flips = np.flatnonzero(factor.cpu().numpy() != g["comb/1/factor"]).tolist()
+    name = kernels if isinstance(kernels, str) else "gated"
+    print(f"[eval-2048] predict with inference_comb_correction, kernels={name}: pitch_hz max rel "
+          f"diff from JAX's {rel:.3e}; comb factors on JAX's pitches equal on "
+          f"{len(pitch) - len(flips)} of {len(pitch)} clips; launches during predict {launches}")
+    require(bool(np.isfinite(pitch).all()) and pitch.shape == g["predict_comb/pitch_hz"].shape,
+            "predict with the comb correction: bad output")
+    require(not flips, f"kernels={name}: comb factors differ from JAX's on clips {flips}")
+    if mod.kernels.stft_frontend and dev.type == "cuda":
+        require(launches["stft_frontend"] > 0, "the correction's STFT did not launch kernel 9")
+    if mod.kernels == PRESETS["auto"]:
+        require(rel <= 1e-3, "predict with the comb correction disagrees with JAX")
+
+
+def check_eval_2048(cfg, dev) -> None:
+    """[eval-2048]: the port's ``evaluate`` with the SOT-2048 seed-42
+    weights in every form of EVAL_FORMS against JAX's, both corrections'
+    factors and decisions at every pitch shift, and ``predict`` with the
+    comb correction under ``auto`` and GATED."""
+    g = eval_golden()
+    for form in EVAL_FORMS:
+        eval_2048_form(cfg, dev, form, g)
+    mod = build_modules(cfg, device=dev)
+    for shift in CORRECTION_SHIFTS:
+        correction_factors_check(mod, g, shift)
+    predict_comb_check(cfg, dev, g, "auto")
+    predict_comb_check(cfg, dev, g, GATED)
 
 
 def main() -> int:
@@ -2369,7 +2594,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab-parent", metavar="PATH", nargs="+", default=[],
                         help="other plane.cu, merge.cu or refgrad.cu sources (e.g. an earlier "
-                             "commit's, chosen by file name) to time kernels 6 and 7, 4 or 5 "
+                             "commit's, chosen by file name) to time kernels 6 and 7, 4 and 8 or 5 "
                              "against, in turns")
     args = parser.parse_args()
     for path in args.ab_parent:
@@ -2402,7 +2627,6 @@ def main() -> int:
     # the train step's kernels on real SOT rows of the trained models
     batches = make_requests(cfg, dev, 1 + TIMING_INPUTS, seed=3000)
     rows = [sot_rows(mod, torch.from_numpy(b).to(dev)) for b in batches]
-    alpha, beta, gaug = rows[0]
     mod512 = build_modules(cfg512, device=dev)
     load_golden_weights(mod512, GOLDEN_512)
     rows512 = [sot_rows(mod512, torch.from_numpy(b).to(dev)) for b in batches]
@@ -2422,13 +2646,14 @@ def main() -> int:
     kernels += plane_entries
     for path in args.ab_parent:
         (plane_ab if os.path.basename(path) == "plane.cu" else rank_ab)(path, shapes)
-    kernels += [check_coupling_grads(alpha, beta, gaug, lambda: rows[1:], rng, dev),
+    kernels += [check_coupling_grads(rows, rng, dev), check_coupling_grads(rows512, rng, dev),
                 check_stft_frontend(dev, rng)] + check_conv(dev, rng)
 
     check_train_golden(cfg, dev)
     check_train_golden(cfg512, dev, GOLDEN_512, GOLDEN_512, (GRAD_LIMITS_512, LEAF_COSINE_512),
                        "train-golden-512")
     check_eval_512(cfg512, dev)
+    check_eval_2048(cfg, dev)
     check_train_golden(cfg, dev, GOLDEN_GATED, GOLDEN, (GRAD_LIMITS_GATED, LEAF_COSINE_GATED),
                        "train-golden-gated", GATED)
 
@@ -2461,8 +2686,11 @@ def main() -> int:
     conv_gate_ab(cfg, dev, x_all)
     # each kernel's count from the run whose main path it is on (kernel 4 at
     # [1024, 257]: SOT-512 auto; kernels 6 and 7 at each loss shape: SOT-2048
-    # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258])
+    # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258];
+    # kernel 8 at [1024, 257]: SOT-512 gated)
     main_path = {("merge_coupling", "[1024, 257]"): "SOT-512 auto",
+                 ("coupling_grads", "[1024, 1025]"): "SOT-2048 gated",
+                 ("coupling_grads", "[1024, 257]"): "SOT-512 gated",
                  ("sot_plane_forward", "[1024, 1026]"): "SOT-2048 default",
                  ("sot_plane_backward", "[1024, 1026]"): "SOT-2048 default",
                  ("sot_plane_forward", "[1024, 258]"): "SOT-512 default",

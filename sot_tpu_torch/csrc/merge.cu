@@ -19,11 +19,9 @@
 // a tie): taking a_k after q elements of b adds x_k a_k PX[q], taking b_l
 // after p of a adds x_l b_l PX[p]. A block of WT = 128 threads owns one row:
 //   1. cp.async brings the row's a and b into shared memory;
-//   2. one pass over each thread's contiguous chunk checks that both rows
-//      are nonincreasing and reads x through L1 into shared memory in
-//      float64 (every block reads x: through L2 alone, all at once, the
-//      blocks queue for its few lines), summing it; a scan gives each
-//      chunk's x prefix, and a second pass writes PX;
+//   2. row_prologue (rows.cuh, shared with the gradient) checks that both
+//      rows are nonincreasing, reads x through L1 into shared memory in
+//      float64 and writes PX;
 //   3. thread r owns the positions [r L, (r + 1) L) of the rows' merge path,
 //      L = ceil(2 m / WT): one co-rank binary search finds its first, then
 //      each step takes one element and adds its term; the next decision
@@ -47,7 +45,6 @@
 #include <stddef.h>
 
 #include "rows.cuh"
-#include "scan.cuh"
 
 namespace {
 
@@ -70,8 +67,7 @@ __global__ void __launch_bounds__(WT, 8)
 coupling_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ x, float* __restrict__ out, int m) {
   extern __shared__ float4 smem4[];
-  __shared__ int warp_flag[WWARPS];
-  __shared__ double warp_x[WWARPS], warp_sum[WWARPS];
+  __shared__ double warp_sum[WWARPS];
   float* smem = reinterpret_cast<float*>(smem4);
   const int S = slot_floats(m);
   const size_t base = (size_t)blockIdx.x * m;
@@ -84,52 +80,7 @@ coupling_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int chunk = (m + WT - 1) / WT;
-  const int e0 = min((int)threadIdx.x * chunk, m), e1 = min(e0 + chunk, m);
-  bool bad = false;
-  double sx = 0.0;
-  {
-    float pa = e0 > 0 ? as[e0 - 1] : 0.f, pb = e0 > 0 ? bs[e0 - 1] : 0.f;
-    for (int e = e0; e < e1; ++e) {
-      const float ae = as[e], be = bs[e];
-      // not nonincreasing, or a NaN (element 0 against itself)
-      bad |= !(ae <= (e > 0 ? pa : ae)) || !(be <= (e > 0 ? pb : be));
-      const double xe = (double)__ldg(x + e);
-      xd[e] = xe;
-      sx += xe;
-      pa = ae;
-      pb = be;
-    }
-  }
-  double xincl = sx;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const double u = __shfl_up_sync(FULL, xincl, d);
-    if (lane >= d) xincl += u;
-  }
-  const unsigned any = __any_sync(FULL, bad);
-  if (lane == 31) {
-    warp_flag[warp] = any ? 1 : 0;
-    warp_x[warp] = xincl;
-  }
-  __syncthreads();
-  int f = 0;
-  double xbefore = 0.0;
-#pragma unroll
-  for (int w = 0; w < WWARPS; ++w) {
-    f |= warp_flag[w];
-    if (w < warp) xbefore += warp_x[w];
-  }
-  const bool full = f != 0;
-  if (!full) {
-    double run = xbefore + (xincl - sx);  // PX at e0
-    for (int e = e0; e < e1; ++e) {
-      px[e] = run;
-      run += xd[e];
-    }
-    if (e0 < e1 && e1 == m) px[m] = run;
-  }
-  __syncthreads();
+  const bool full = row_prologue<WT, true>(as, bs, x, xd, px, m) != 0;
 
   double acc = 0.0;
   if (full) {
@@ -182,96 +133,143 @@ coupling_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // 1/2), which the TPU kernel realises as the mean of two bitonic merges with
 // opposite tie directions and two stream compactions per side. Here a and b
 // are each sorted already, so no merge is needed: with the float64 prefix
-// sums PX[p] = sum_{k < p} x_k, a query v into the nonincreasing row s gives
-// the strict and the tie-inclusive weights PX[#{s > v}] and PX[#{s >= v}] by
-// two binary searches, and the result x * (strict + inclusive) / 2 is
-// rounded once to f32. A row that is not nonincreasing is scanned whole
-// (O(m^2), the same sums in the dense oracle's form); the rows of real SOT
-// losses are sorted. Deterministic, no atomics.
+// PX[p] = sum_{k < p} x_k, a query v into the nonincreasing row s has the
+// strict and the tie-inclusive weights PX[#{s > v}] and PX[#{s >= v}], and
+// the result x * (strict + inclusive) / 2 is rounded once to f32.
+//
+// Design. A block of GT = 128 threads owns one row: cp.async brings a and b
+// into shared memory and row_prologue (rows.cuh, shared with the value)
+// checks both rows and writes PX. Warp w takes the 32-column chunks w, w +
+// 4, w + 8, ... of the row (its columns, in that order; every warp gets a
+// share of the row's start and of its tail) and
+//   1. marks its heads, its first column and each column whose query
+//      differs from that of the column before it among its columns, and
+//      compacts their queries in order into its slice of shared memory: the
+//      equal queries of a sorted row are neighbours, so each distinct value
+//      has one head (a real SOT row has few: the zeros past the quantile
+//      cap and the flat CDF stretches repeat one value over many columns);
+//   2. searches once per head, a lane to a head: a binary search of s gives
+//      the strict count, and only where s[strict] == v (a tie) does a
+//      second search go on past the tied run for the inclusive one (none
+//      where the tie runs to the row's end, as the zeros do); the head
+//      keeps its weight (PX[strict] + PX[inclusive]) / 2 in float64;
+//   3. writes each column, x times its head's weight, coalesced.
+// So a row takes one search per distinct value of each warp's columns and
+// a second per tie. A side whose s is not nonincreasing (never on a real
+// loss) scans s whole per column, the same sums in the dense oracle's form,
+// so the kernel is right for any order. Fixed orders and no atomics: two
+// launches agree bit for bit. 25.7 KB of shared memory at m = 1025 and at
+// most 64 registers (__launch_bounds__), so the 1024 blocks of a SOT-2048
+// batch run as one wave, 8 to an SM.
 //
 // Bound on the H100: bytes. At SOT-2048's shape (1024 x 1025, db only) it
-// reads a, b (8.4 MB) and writes db (4.2 MB): ~3.8 us; the work is two binary
-// searches of 11 steps per element.
+// reads a, b (8.4 MB) and writes db (4.2 MB): ~3.8 us; the searches are
+// ~11 steps per distinct query.
 
-constexpr int NT = 256;  // threads of a coupling-gradient block, which owns one row
-constexpr int NWARPS = NT / 32;
+constexpr int GT = 128;  // threads of a coupling-gradient block, which owns one row
+constexpr int GWARPS = GT / 32;
 
-// #{k : s_k > v} (strict) or #{k : s_k >= v} for nonincreasing s
-template <bool INCLUSIVE>
-__device__ __forceinline__ int count_above(const float* s, int m, float v) {
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const bool above = INCLUSIVE ? (s[mid] >= v) : (s[mid] > v);
-    if (above) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// Dynamic shared memory of a coupling-gradient block: a and b in slots, PX
+// [m + 1] in float64, then the heads' values, 32 ceil(m / GT) float64 for
+// each warp. 196,648 bytes at m = 8192.
+__host__ __device__ __forceinline__ size_t grad_smem_bytes(int m) {
+  return 2 * (size_t)slot_floats(m) * sizeof(float) + (size_t)(m + 1) * sizeof(double) +
+         (size_t)GT * ((m + GT - 1) / GT) * sizeof(double);
 }
 
-// out_l = x_l * (PX[#{s > q_l}] + PX[#{s >= q_l}]) / 2 for every column l of
-// one row; `full` scans s whole instead (s not sorted).
+// out_l = x_l * (PX[#{s > q_l}] + PX[#{s >= q_l}]) / 2 for the columns l of
+// this warp (steps 1-3 above, in the warp's slice `heads`); `full` scans s
+// whole instead (s not sorted), block-strided.
 __device__ void side_grad(const float* s, const float* q, const float* __restrict__ x,
-                          const double* px, float* __restrict__ out, int m, bool full) {
-  for (int l = threadIdx.x; l < m; l += NT) {
-    const float v = q[l];
-    double strict, incl;
-    if (full) {
-      strict = 0.0;
-      incl = 0.0;
+                          const double* px, double* heads, float* __restrict__ out, int m,
+                          bool full) {
+  if (full) {
+    for (int l = threadIdx.x; l < m; l += GT) {
+      const float v = q[l];
+      double strict = 0.0, incl = 0.0;
       for (int k = 0; k < m; ++k) {
-        const double xk = (double)x[k];
+        const double xk = (double)__ldg(x + k);
         if (s[k] > v) strict += xk;
         if (s[k] >= v) incl += xk;
       }
-    } else {
-      strict = px[count_above<false>(s, m, v)];
-      incl = px[count_above<true>(s, m, v)];
+      out[l] = (float)((double)__ldg(x + l) * (0.5 * (strict + incl)));
     }
-    out[l] = (float)((double)x[l] * (0.5 * (strict + incl)));
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int chunks = (m + GT - 1) / GT;
+  double* own = heads + warp * 32 * chunks;
+  const unsigned upto = FULL >> (31 - lane);  // this lane and the ones below it
+  // 1. the heads' queries, compacted in column order
+  int nh = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int l = (warp + GWARPS * c) * 32 + lane;
+    // the column before l among the warp's: l - 1, or its previous chunk's last
+    const int prev = lane > 0 ? l - 1 : l - 32 * GWARPS + 31;
+    const bool head = l < m && ((c == 0 && lane == 0) || q[l] != q[prev]);
+    const unsigned mask = __ballot_sync(FULL, head);
+    if (head) own[nh + __popc(mask & upto) - 1] = (double)q[l];
+    nh += __popc(mask);
+  }
+  __syncwarp();
+  // 2. a search per head, a second one only past a tie
+  for (int h = lane; h < nh; h += 32) {
+    const float v = (float)own[h];
+    int lo = 0, hi = m;  // #{s > v}: the first k with !(s_k > v)
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s[mid] > v) lo = mid + 1; else hi = mid;
+    }
+    const int strict = lo;
+    if (lo < m && s[lo] == v) {  // a tie: #{s >= v} lies past the tied run
+      if (s[m - 1] == v) {
+        lo = m;
+      } else {
+        ++lo;
+        hi = m - 1;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s[mid] >= v) lo = mid + 1; else hi = mid;
+        }
+      }
+    }
+    own[h] = 0.5 * (px[strict] + px[lo]);  // the head's weight
+  }
+  __syncwarp();
+  // 3. each column from its head's weight (its head: the last one at or
+  // before it among the warp's columns)
+  nh = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int l = (warp + GWARPS * c) * 32 + lane;
+    const int prev = lane > 0 ? l - 1 : l - 32 * GWARPS + 31;
+    const bool head = l < m && ((c == 0 && lane == 0) || q[l] != q[prev]);
+    const unsigned mask = __ballot_sync(FULL, head);
+    if (l < m) out[l] = (float)((double)__ldg(x + l) * own[nh + __popc(mask & upto) - 1]);
+    nh += __popc(mask);
   }
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(GT, 8)
 coupling_grad_kernel(const float* __restrict__ a, const float* __restrict__ b,
                      const float* __restrict__ x, float* __restrict__ da,
                      float* __restrict__ db, int m) {
-  extern __shared__ double smem[];
-  double* px = smem;                                      // [m + 1]
-  float* as = reinterpret_cast<float*>(px + (m + 1));     // [m]
-  float* bs = as + m;                                     // [m]
-  __shared__ double warp_buf[NWARPS];
-
-  const int tid = threadIdx.x;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int S = slot_floats(m);
   const size_t base = (size_t)blockIdx.x * m;
-  for (int l = tid; l < m; l += NT) {
-    as[l] = a[base + l];
-    bs[l] = b[base + l];
-  }
-  // each thread owns one contiguous chunk of columns of the x prefix
-  const int chunk = (m + NT - 1) / NT;
-  const int lo = min(tid * chunk, m);
-  const int hi = min(lo + chunk, m);
-  double sx = 0.0;
-  for (int l = lo; l < hi; ++l) sx += (double)x[l];
-  double total;
-  double run = block_excl_scan<NT>(sx, warp_buf, &total);
-  for (int l = lo; l < hi; ++l) {
-    px[l] = run;
-    run += (double)x[l];
-  }
-  if (tid == 0) px[m] = total;
+  const float* as = copy_slot<GT>(a + base, smem, m);
+  const float* bs = copy_slot<GT>(b + base, smem + S, m);
+  double* px = reinterpret_cast<double*>(smem + 2 * S);
+  double* heads = px + m + 1;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-
-  int ua = 0, ub = 0;
-  for (int l = tid + 1; l < m; l += NT) {
-    ua |= !(as[l] <= as[l - 1]);
-    ub |= !(bs[l] <= bs[l - 1]);
+  const int unsorted = row_prologue<GT, false>(as, bs, x, nullptr, px, m);
+  side_grad(as, bs, x, px, heads, db + base, m, unsorted & 1);
+  if (da != nullptr) {
+    __syncwarp();  // the warp's slice of heads is used again
+    side_grad(bs, as, x, px, heads, da + base, m, unsorted & 2);
   }
-  const bool a_unsorted = __syncthreads_or(ua) != 0;
-  const bool b_unsorted = __syncthreads_or(ub) != 0;
-
-  side_grad(as, bs, x, px, db + base, m, a_unsorted);
-  if (da != nullptr) side_grad(bs, as, x, px, da + base, m, b_unsorted);
 }
 
 }  // namespace
@@ -297,13 +295,12 @@ extern "C" int coupling_forward_f32(const float* a, const float* b, const float*
 // Returns cudaGetLastError() of the launch.
 extern "C" int coupling_grads_f32(const float* a, const float* b, const float* x, float* da,
                                   float* db, int rows, int m, void* stream) {
-  const size_t shmem = (size_t)(m + 1) * sizeof(double) + 2 * (size_t)m * sizeof(float);
+  const size_t shmem = grad_smem_bytes(m);
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         coupling_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  coupling_grad_kernel<<<rows, NT, shmem, static_cast<cudaStream_t>(stream)>>>(a, b, x, da, db,
-                                                                              m);
+  coupling_grad_kernel<<<rows, GT, shmem, static_cast<cudaStream_t>(stream)>>>(a, b, x, da, db, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,14 +8,16 @@ RPA, RCA, octave difference, W1/W2.
   * MSS metric = six-scale magnitude + log-magnitude L1
   * signed mean octave difference with the 50-cent guard
   * W1/W2 spectral distance at n_fft = 512 on a fixed linspace support
-
-The inference-time corrections (``octave_correct_pitch``,
-``comb_correct_pitch``) are not ported yet (ROADMAP A).
+  * the unsupervised pitch corrections ``octave_correct_pitch`` and
+    ``comb_correct_pitch``: clip-level factors read off the input's
+    spectrum (the JAX package's float32 arithmetic: ``jnp.median``'s
+    midpoint of the two middle frames, round half to even, truncation to
+    int32, the first of equal scores)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,6 +95,135 @@ def mean_octave_difference(pred_hz: torch.Tensor, true_hz: torch.Tensor) -> torc
     oct_diff = torch.floor(torch.abs(diff + 50.0 * sign) / 1200.0)
     num = torch.sum(torch.where(nonzero, oct_diff * sign, 0.0))
     return torch.where(nonzero.any(), num / ref_cent.shape[0], 0.0)
+
+
+def _clip_spectrum(x: torch.Tensor, n_fft: int, frontend: bool) -> torch.Tensor:
+    """[b, T] -> the frame mean [b, n_fft // 2 + 1] of the Hann magnitude
+    STFT at 75% overlap (kernel 9 with ``frontend``, where it applies)."""
+    return stft_magnitude(x, size=n_fft, overlap=0.75, frontend=frontend).mean(dim=1)
+
+
+def _median_frames(pitch_hz: torch.Tensor) -> torch.Tensor:
+    """[b, frames, 1] -> [b]: ``jnp.median`` over the frames (the midpoint
+    (lo + hi) * 0.5 of the two middle values, NaN where a frame is NaN)."""
+    p = pitch_hz[:, :, 0]
+    srt = torch.sort(p, dim=1).values
+    n = p.shape[1]
+    mid = (srt[:, (n - 1) // 2] + srt[:, n // 2]) * 0.5
+    return torch.where(torch.isnan(p).any(dim=1), float("nan"), mid)
+
+
+def _band_peak(spec: torch.Tensor, freq: torch.Tensor, df: float) -> torch.Tensor:
+    """The largest magnitude of spec [b, bins] within +-2% (at least one
+    bin) of each frequency freq [b, ...] in Hz."""
+    b, n_bins = spec.shape
+    max_halfwidth = max(1, int(0.02 * (n_bins - 1)))  # full +-2% at Nyquist
+    offsets = torch.arange(-max_halfwidth, max_halfwidth + 1, device=spec.device)
+    idx = torch.round(freq.reshape(b, -1) / df).to(torch.int32)
+    take = torch.clamp(idx[..., None] + offsets, 0, n_bins - 1)
+    vals = torch.gather(spec, 1, take.reshape(b, -1).long()).reshape(take.shape)
+    halfwidth = torch.clamp((0.02 * idx).to(torch.int32), min=1)
+    mask = offsets.abs() <= halfwidth[..., None]
+    return torch.where(mask, vals, 0.0).amax(dim=-1).reshape(freq.shape)
+
+
+def octave_factors(x: torch.Tensor, pitch_hz: torch.Tensor, sample_rate: float = 16000,
+                   n_fft: int = 2048, rel_threshold: float = 0.1,
+                   down_threshold: float = 0.25, max_shifts: int = 3,
+                   min_frequency_hz: float = 38.0, frontend: bool = False
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``octave_correct_pitch``'s clip factors [b] and the quantities its
+    decisions compare: the median pitch ``f0``, the spectrum's
+    ``global_peak``, and per round the band peak at the fundamental
+    (``up``, against rel_threshold x global_peak) and at half of it
+    (``down``, against down_threshold x global_peak)."""
+    spec = _clip_spectrum(x, n_fft, frontend)
+    df = sample_rate / n_fft
+    f0 = _median_frames(pitch_hz)
+    factor = torch.ones_like(f0)
+    nyquist = sample_rate / 2.0
+    global_peak = spec.amax(dim=-1)
+    up, down = [], []
+    # octave-DOWN errors: the predicted fundamental band is empty -> up
+    for _ in range(max_shifts):
+        cur = f0 * factor
+        up.append(_band_peak(spec, cur, df))
+        shift = (up[-1] < rel_threshold * global_peak) & (2.0 * cur < nyquist)
+        factor = torch.where(shift, factor * 2.0, factor)
+    # octave-UP errors: strong energy below the fundamental -> down
+    for _ in range(max_shifts):
+        cur = f0 * factor
+        down.append(_band_peak(spec, 0.5 * cur, df))
+        shift = (down[-1] > down_threshold * global_peak) & (0.5 * cur >= min_frequency_hz)
+        factor = torch.where(shift, factor * 0.5, factor)
+    return factor, {"f0": f0, "global_peak": global_peak, "up": torch.stack(up),
+                    "down": torch.stack(down)}
+
+
+def octave_correct_pitch(x: torch.Tensor, pitch_hz: torch.Tensor, **kwargs) -> torch.Tensor:
+    """Unsupervised test-time octave disambiguation
+    (``sot_tpu/metrics.py:octave_correct_pitch``): while the input's
+    magnitude in a +-2% band at the clip's median pitch is under
+    rel_threshold x its spectral peak, double the pitch; then, while the
+    band at half the pitch holds more than down_threshold x the peak (and
+    half stays >= min_frequency_hz), halve it. x [b, T], pitch_hz [b,
+    frames, 1]; keyword arguments as ``octave_factors``."""
+    factor, _ = octave_factors(x, pitch_hz, **kwargs)
+    return pitch_hz * factor[:, None, None]
+
+
+_COMB_RATIOS = (1.0, 2.0, 3.0, 4.0, 0.5, 1.0 / 3.0, 0.25,
+                2.0 / 3.0, 1.5, 0.75, 4.0 / 3.0)
+
+
+def comb_factors(x: torch.Tensor, pitch_hz: torch.Tensor, sample_rate: float = 16000,
+                 n_fft: int = 2048, rel_threshold: float = 0.1, down_threshold: float = 0.25,
+                 margin: float = 0.1, n_harmonics: int = 8,
+                 ratios: Sequence[float] = _COMB_RATIOS, min_frequency_hz: float = 38.0,
+                 frontend: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``comb_correct_pitch``'s clip factors [b] and the quantities its
+    decisions compare: ``f0``, ``global_peak``, the normalised band peaks
+    ``s`` [b, R, K] of each candidate ratio's comb (s[..., 0], the
+    candidate's fundamental, against its admissibility threshold) and the
+    comb ``score`` [b, R] (against the identity's times 1 + margin, and
+    each other)."""
+    spec = _clip_spectrum(x, n_fft, frontend)
+    df = sample_rate / n_fft
+    f0 = _median_frames(pitch_hz)
+    nyquist = sample_rate / 2.0
+    global_peak = spec.amax(dim=-1)
+    r = torch.tensor(ratios, dtype=torch.float32, device=spec.device)
+    ks = torch.arange(1, n_harmonics + 1, dtype=torch.float32, device=spec.device)
+    fc = f0[:, None] * r[None, :]  # [b, R]
+    comb = fc[..., None] * ks  # [b, R, K]
+    s = _band_peak(spec, comb, df) / (global_peak[:, None, None] + 1e-20)
+    score = torch.sum(torch.where(comb < nyquist, torch.clamp(s, max=1.0), 0.0), dim=-1)
+    thr = torch.where(r < 1.0, down_threshold, rel_threshold)[None, :]
+    admissible = (s[..., 0] >= thr) & (fc >= min_frequency_hz) & (fc < nyquist)
+    i1 = list(ratios).index(1.0)
+    identity_valid = admissible[:, i1]
+    identity_score = score[:, i1][:, None]
+    # identity invalid -> any admissible candidate; identity valid -> only
+    # down candidates that clearly beat it
+    elig_invalid = admissible & (r != 1.0)[None, :]
+    elig_valid = admissible & (r < 1.0)[None, :] & (score > identity_score * (1.0 + margin))
+    eligible = torch.where(identity_valid[:, None], elig_valid, elig_invalid)
+    best = torch.argmax(torch.where(eligible, score, float("-inf")), dim=-1)
+    factor = torch.where(eligible.any(dim=-1), r[best], 1.0)
+    return factor, {"f0": f0, "global_peak": global_peak, "s": s, "score": score}
+
+
+def comb_correct_pitch(x: torch.Tensor, pitch_hz: torch.Tensor, **kwargs) -> torch.Tensor:
+    """Unsupervised test-time harmonic-comb disambiguation
+    (``sot_tpu/metrics.py:comb_correct_pitch``): each candidate ratio r of
+    the clip's median pitch is scored by its comb's summed, peak-normalised
+    band magnitudes; a candidate whose fundamental band is empty is
+    inadmissible. Where the predicted fundamental is empty the best
+    admissible other candidate wins; where it is occupied only a down
+    candidate (r < 1) that beats its score by ``margin`` does. x [b, T],
+    pitch_hz [b, frames, 1]; keyword arguments as ``comb_factors``."""
+    factor, _ = comb_factors(x, pitch_hz, **kwargs)
+    return pitch_hz * factor[:, None, None]
 
 
 def wasserstein_distance(x: torch.Tensor, x_hat: torch.Tensor, p: float = 1,

@@ -25,8 +25,10 @@ Bounds on the H100: bytes (the forward reads 8.4 MB at [1024, 1025],
 ``THREADS_PER_ROW`` threads per row walks the merge path of a and b in
 equal slices, one co-rank search each, every element's term x a PX[count]
 in float64; a row that is not nonincreasing on either side
-(``unsorted_rows``) is summed over all pairs. The gradient: one block per
-row, binary searches with float64 prefix sums in shared memory. See the
+(``unsorted_rows``) is summed over all pairs. The gradient: a block of 128
+threads per row, one binary search per distinct query of a warp's columns
+(a second only past a tie), float64 prefix sums in shared memory
+(``tests/test_torch_merge_grad_plan.py`` transcribes it). See the
 source.
 
 On a CPU tensor ``coupling`` and ``coupling_grads`` run their plain

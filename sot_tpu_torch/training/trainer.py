@@ -14,7 +14,9 @@
     device-resident dataset
   * ``make_eval_step`` / ``make_eval_all`` / ``evaluate`` — the metric
     suite (``metrics.py``) and the loss terms of a batch in eval mode, their
-    mean over batches
+    mean over batches, on the pitch as the config's eval corrections leave it
+  * ``apply_octave_correction`` / ``apply_comb_correction`` — the
+    unsupervised pitch corrections with the config's thresholds
   * ``predict`` — the deployment inference entry
 
 Parameters live in ``mod.encoder``; the optimizer, scheduler, dropout
@@ -312,21 +314,55 @@ def train_steps(mod: Modules, state: TrainState, x_all: torch.Tensor,
     return logs
 
 
+def correction_kwargs(mod: Modules) -> Dict[str, Any]:
+    """The pitch corrections' arguments from the config, as the JAX
+    package's ``apply_*_correction`` pass them, and the STFT gate."""
+    cfg = mod.config
+    return {"sample_rate": cfg.sample_rate,
+            "rel_threshold": cfg.octave_correction_rel_threshold,
+            "down_threshold": cfg.octave_correction_down_threshold,
+            "min_frequency_hz": 0.95 * cfg.freq_gen_min,
+            "frontend": mod.kernels.stft_frontend}
+
+
+def apply_octave_correction(mod: Modules, x: torch.Tensor, pitch_hz: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unsupervised octave correction with the config's thresholds (its
+    STFT on kernel 9 under the ``stft_frontend`` gate); returns the
+    corrected (pitch_hz, pitch_unit)."""
+    pitch_hz = metrics_lib.octave_correct_pitch(x, pitch_hz, **correction_kwargs(mod))
+    return pitch_hz, hz_to_unit(pitch_hz, mod.freq_hz_min, mod.freq_hz_max)
+
+
+def apply_comb_correction(mod: Modules, x: torch.Tensor, pitch_hz: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The harmonic-comb correction (it supersedes the octave rule where
+    both are enabled) with the config's thresholds and margin; returns the
+    corrected (pitch_hz, pitch_unit)."""
+    pitch_hz = metrics_lib.comb_correct_pitch(x, pitch_hz, margin=mod.config.comb_correction_margin,
+                                              **correction_kwargs(mod))
+    return pitch_hz, hz_to_unit(pitch_hz, mod.freq_hz_min, mod.freq_hz_max)
+
+
 def _eval_metrics(mod: Modules, x: torch.Tensor, true_pitch: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:
     """The metric suite and the loss terms of one batch, eval mode, the
-    odd-ratio prior off (``prior_scale`` 0: eval losses stay comparable)."""
+    odd-ratio prior off (``prior_scale`` 0: eval losses stay comparable),
+    the pitch corrected by the comb rule under ``eval_comb_correction``,
+    else by the octave rule under ``eval_octave_correction``."""
     cfg = mod.config
-    if cfg.eval_comb_correction or cfg.eval_octave_correction:
-        raise NotImplementedError(
-            "eval_comb_correction / eval_octave_correction are not ported yet (ROADMAP)")
     _, (logs, out) = compute_loss(mod, x, train=False, prior_scale=0.0)
     pitch_hz = out["pitch_hz"]  # [batch, frames, 1]
+    pitch_unit = out["pitch_unit"]
+    if cfg.eval_comb_correction:
+        pitch_hz, pitch_unit = apply_comb_correction(mod, x, pitch_hz)
+    elif cfg.eval_octave_correction:
+        pitch_hz, pitch_unit = apply_octave_correction(mod, x, pitch_hz)
     true_hz = true_pitch[:, None, :].expand(pitch_hz.shape)
     true_unit = hz_to_unit(true_pitch, mod.freq_hz_min, mod.freq_hz_max)
     m = metrics_lib.compute_metrics(
         mod.evaluation_metrics, x, out["x_hat"], pitch_hz, true_hz,
-        frequency_unit=out["pitch_unit"],
+        frequency_unit=pitch_unit,
         true_frequency_unit=true_unit[:, None, :].expand(pitch_hz.shape))
     m.update(logs)
     return m
@@ -374,17 +410,18 @@ def predict(mod: Modules, x, octave_correction: Optional[bool] = None
     """Deployment inference entry: pitch + harmonic amplitudes for audio x
     ([batch, n_samples], array or tensor), computed on ``mod.device``.
 
-    The inference-time octave and comb corrections need
-    ``metrics.octave_correct_pitch`` / ``comb_correct_pitch``, which are not
-    ported yet (ROADMAP A1): asking for either raises.
+    Unlike the eval path, the unsupervised corrections rewrite the returned
+    prediction: the comb rule under ``cfg.inference_comb_correction``, else
+    the octave rule under ``octave_correction`` (default
+    ``cfg.inference_octave_correction``).
     """
     if octave_correction is None:
         octave_correction = mod.config.inference_octave_correction
-    if mod.config.inference_comb_correction or octave_correction:
-        raise NotImplementedError(
-            "inference_comb_correction / inference_octave_correction need "
-            "metrics.octave_correct_pitch / comb_correct_pitch, which are not ported yet "
-            "(ROADMAP A1)")
     x = torch.as_tensor(x, dtype=torch.float32, device=mod.device)
     with torch.inference_mode():
-        return forward(mod, x)
+        out = forward(mod, x)
+        if mod.config.inference_comb_correction:
+            out["pitch_hz"], out["pitch_unit"] = apply_comb_correction(mod, x, out["pitch_hz"])
+        elif octave_correction:
+            out["pitch_hz"], out["pitch_unit"] = apply_octave_correction(mod, x, out["pitch_hz"])
+        return out

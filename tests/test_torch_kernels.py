@@ -633,6 +633,68 @@ def test_coupling_grads_kernel_matches_plain_on_card(rows):
     assert kmerge.grad_launches == before + 2
 
 
+def _grad_rows(kind, m):
+    """(a, b, x) float32 numpy of kernel 8's row families: the stress kinds
+    and dyadic rows on dyadic grid deltas, and permuted complements of
+    random sorted rows on one side or both."""
+    if kind in chip_smoke.GRAD_STRESS_KINDS:
+        return chip_smoke.grad_stress_rows(kind, 256, m)
+    rng = np.random.default_rng(m)
+    rows = (chip_smoke.dyadic_plane_rows(rng, 64 if m <= 1025 else 8, m + 1) if kind == "dyadic"
+            else chip_smoke.random_plane_rows(rng, 64, m + 1))
+    a, b, x = (t.numpy() for t in chip_smoke.complements(*(torch.from_numpy(v)
+                                                             for v in rows[:3])))
+    if kind in ("a unsorted", "both unsorted"):
+        a = rng.permuted(a, axis=-1)
+    if kind in ("b unsorted", "both unsorted"):
+        b = rng.permuted(b, axis=-1)
+    return a, b, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m", [("all zeros", 300), ("a = b", 1025),
+                                    ("one distinct value", 257), ("dyadic", 1), ("dyadic", 2),
+                                    ("dyadic", 8192), ("a unsorted", 257), ("b unsorted", 257),
+                                    ("both unsorted", 1025)])
+def test_coupling_grads_kernel_on_row_families_on_card(kind, m):
+    """Kernel 8, alpha_grads both ways, against its plain version: bit for
+    bit on the stress and dyadic rows (exact prefix sums), within
+    chip_smoke's COUPLING_GRAD_LIMIT on rows unsorted on either side (the
+    whole-row scan), m = 1, 2 and 8192 (the most shared memory a block
+    needs)."""
+    _need_cuda()
+    a, b, x = (torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in _grad_rows(kind, m))
+    for alpha_grads in (True, False):
+        got = kmerge.coupling_grads(a, b, x, alpha_grads)
+        ref = kmerge.coupling_grads_plain(a, b, x, alpha_grads)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if r is None:
+                assert g is None
+                continue
+            if "unsorted" not in kind:
+                assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+            assert float((g - r).abs().max()) <= chip_smoke.COUPLING_GRAD_LIMIT * float(
+                r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [257, 1025])
+def test_coupling_grads_kernel_bit_equal_across_launches_on_card(m):
+    """Two launches of kernel 8 on the same random rows, alpha_grads both
+    ways: bit-equal (fixed orders, no atomics)."""
+    _need_cuda()
+    a, b, x = (torch.from_numpy(np.ascontiguousarray(t)).cuda()
+               for t in chip_smoke.complements(*(torch.from_numpy(v) for v in
+                                                 chip_smoke.random_plane_rows(
+                                                     np.random.default_rng(m), 1024, m + 1)[:3])))
+    for alpha_grads in (True, False):
+        runs = [kmerge.coupling_grads(a, b, x, alpha_grads) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][1], runs[1][1])
+        assert (runs[0][0] is None) or torch.equal(runs[0][0], runs[1][0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,hop,window", chip_smoke.FRONTEND_CASES)
 def test_stft_frontend_kernel_and_its_gradient_on_card(n_fft, hop, window):

@@ -13,6 +13,8 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke  # noqa: E402
+from sot_tpu_torch import metrics as tmetrics  # noqa: E402
 from sot_tpu_torch.configs import get_experiment  # noqa: E402
 from sot_tpu_torch.convert import flax_tree_from_flat, params_from_flax  # noqa: E402
 from sot_tpu_torch.training import trainer as ttrainer  # noqa: E402
@@ -106,6 +108,21 @@ def test_serving_entry_without_device_or_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("override", [{"inference_octave_correction": True},
                                       {"inference_comb_correction": True}])
 def test_inference_corrections_are_not_ported_yet(override):
-    mod = ttrainer.build_modules(get_experiment("SOT-2048", **override), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.predict(mod, np.zeros((1, 4096), np.float32))
+    """Ported now (ROADMAP A1): ``predict`` rewrites the pitch it returns by
+    the correction's clip factors, and the pitch units with it."""
+    cfg = get_experiment("SOT-2048", **override)
+    mod, base = (ttrainer.build_modules(c, device="cpu") for c in (cfg, get_experiment("SOT-2048")))
+    for m in (mod, base):
+        chip_smoke.load_golden_weights(m)
+    with np.load(chip_smoke.GOLDEN) as z:
+        x = torch.from_numpy(z["x"][:16])
+    out, plain = ttrainer.predict(mod, x), ttrainer.predict(base, x)
+    kwargs = ttrainer.correction_kwargs(mod)
+    factors = (tmetrics.comb_factors(x, plain["pitch_hz"], margin=cfg.comb_correction_margin,
+                                     **kwargs)
+               if cfg.inference_comb_correction else
+               tmetrics.octave_factors(x, plain["pitch_hz"], **kwargs))[0]
+    assert torch.equal(out["pitch_hz"], plain["pitch_hz"] * factors[:, None, None])
+    assert torch.equal(out["pitch_unit"], ttrainer.hz_to_unit(out["pitch_hz"], mod.freq_hz_min,
+                                                              mod.freq_hz_max))
+    assert torch.equal(out["weights"], plain["weights"])

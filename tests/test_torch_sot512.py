@@ -140,9 +140,15 @@ def test_eval_all_is_the_mean_of_the_eval_steps():
     split = tdata.SplitArrays(x, f0, np.zeros((8, 1), np.float32))
     ev = ttrainer.evaluate(mod, step, split, batch_size=3)  # batches of 3, 3 and 2 clips
     assert set(ev) == set(both) and all(np.isfinite(v) for v in ev.values())
-    with pytest.raises(NotImplementedError, match="eval_comb_correction"):
-        ttrainer.make_eval_step(ttrainer.build_modules(
-            get_experiment("SOT-512", eval_octave_correction=True), device="cpu"))(xs[0], f0s[0])
+    # the corrections are ported (ROADMAP A1): the corrected eval step gives
+    # the same metrics, its loss terms unchanged
+    octcorr = ttrainer.build_modules(get_experiment("SOT-512", eval_octave_correction=True),
+                                     device="cpu")
+    octcorr.encoder.load_state_dict(mod.encoder.state_dict())
+    corrected = ttrainer.make_eval_step(octcorr)(xs[0], f0s[0])
+    assert set(corrected) == set(steps[0])
+    for k in ("loss/total", "mse", "log_spectral_distance"):
+        assert float(corrected[k]) == float(steps[0][k])
 
 
 def test_logf_grid_within_two_ulp_of_jax():

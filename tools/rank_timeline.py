@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Per-block timelines of the SOT rank kernels (4 and 5) on one GPU.
+"""Per-block timelines of the SOT rank kernels (4, 5 and 8) on one GPU.
 
-Kernel 4 is ``coupling_fwd_kernel`` in ``sot_tpu_torch/csrc/merge.cu``,
-kernel 5 ``refgrad_kernel`` in ``sot_tpu_torch/csrc/refgrad.cu``. The
-script copies a merge.cu and a refgrad.cu of either design and adds
-``clock64`` and ``%globaltimer`` stamps, builds the copies with nvcc, runs
-them on the smoke's real SOT rows at both loss shapes and prints, per
-(kernel, shape), one JSON line: the registers and shared memory ``ptxas``
-gave the unmodified kernel, the blocks per SM the occupancy API allows for
-it, the median (and 90th percentile) cycles of each phase, the block
-cycles, the launch's span, the blocks each SM ran and how many ran on it at
-once, the waves that makes, how the block cycles follow the row's work
-(kernel 4: its runs of equal values; kernel 5: its columns that need the
-closed form) and the phases of the slowest tenth of the blocks.
+Kernel 4 is ``coupling_fwd_kernel`` and kernel 8 ``coupling_grad_kernel`` in
+``sot_tpu_torch/csrc/merge.cu``, kernel 5 ``refgrad_kernel`` in
+``sot_tpu_torch/csrc/refgrad.cu``. The script copies a merge.cu (twice:
+once for kernel 4, once for kernel 8) and a refgrad.cu of either design and
+adds ``clock64`` and ``%globaltimer`` stamps, builds the copies with nvcc,
+runs them on the smoke's real SOT rows at both loss shapes (kernel 8 on the
+gated step's rows, without alpha gradients, as training calls it) and
+prints, per (kernel, shape), one JSON line: the registers and shared memory
+``ptxas`` gave the unmodified kernel, the blocks per SM the occupancy API
+allows for it, the median (and 90th percentile) cycles of each phase, the
+block cycles, the launch's span, the blocks each SM ran and how many ran on
+it at once, the waves that makes, how the block cycles follow the row's
+work (kernel 4: its runs of equal values; kernel 5: its columns that need
+the closed form; kernel 8: the distinct values of b, and the columns whose
+query ties a value of a) and the phases of the slowest tenth of the blocks.
+Kernel 8's line also holds the unmodified kernel's device ms (profiler).
 
   * The first design (a block of 256 threads per row, float64
     scans in kernel 4, a binary search per element): stamps at the block
@@ -21,10 +25,16 @@ closed form) and the phases of the slowest tenth of the blocks.
   * The second design (kernel 4 a merge-path walk over the two rows'
     elements, 128 threads per row; kernel 5 a binary search per column that
     needs the closed form, 256 threads per row): a stamp after every barrier
-    of the kernel, so each phase reads as its slowest thread and the
-    barrier.
+    of the kernel (and after kernel 4's shared prologue, which ends in
+    one), so each phase reads as its slowest thread and the barrier.
+  * Kernel 8, first design (256 threads per row, two binary searches per
+    column): stamps after the row load (behind a barrier the copy adds),
+    the x prefix and the sortedness check, each warp's end of its searches
+    and the block end. Second design (128 threads per row, one search per
+    distinct query of a warp): stamps after the row load and the prologue,
+    the slowest warp's end of each of its passes and the block end.
 
-    mkdir -p runs/parent && git archive 4bfeb1f sot_tpu_torch/csrc | tar -x -C runs/parent
+    mkdir -p runs/parent && git archive 8859f17 sot_tpu_torch/csrc | tar -x -C runs/parent
     python3 tools/rank_timeline.py runs/parent/sot_tpu_torch/csrc/{merge,refgrad}.cu
     python3 tools/rank_timeline.py sot_tpu_torch/csrc/{merge,refgrad}.cu
 
@@ -38,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -78,6 +89,75 @@ extern "C" int timeline_occupancy(void* kernel, int threads, size_t shmem, int* 
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, shmem);
 }
 '''
+
+# kernel 8's first design: (text, its instrumented replacement)
+FIRST_GRAD_EDITS = [
+    ('#include "scan.cuh"', '#include "scan.cuh"\n' + STAMPS),
+    ('''                     float* __restrict__ db, int m) {
+  extern __shared__ double smem[];''',
+     '''                     float* __restrict__ db, int m, unsigned long long* tb) {
+  extern __shared__ double smem[];''' + START),
+    ('''    bs[l] = b[base + l];
+  }''',
+     '''    bs[l] = b[base + l];
+  }
+  __syncthreads();
+  if (tid == 0) T[1] = clock64() - c0;'''),
+    ('''  if (tid == 0) px[m] = total;
+  __syncthreads();''',
+     '''  if (tid == 0) px[m] = total;
+  __syncthreads();
+  if (tid == 0) T[2] = clock64() - c0;'''),
+    ("  const bool b_unsorted = __syncthreads_or(ub) != 0;",
+     "  const bool b_unsorted = __syncthreads_or(ub) != 0;\n"
+     "  if (tid == 0) T[3] = clock64() - c0;"),
+    ("  if (da != nullptr) side_grad(bs, as, x, px, da + base, m, b_unsorted);\n}",
+     "  if (da != nullptr) side_grad(bs, as, x, px, da + base, m, b_unsorted);" + WARP_END
+     + "\n  __syncthreads();\n  " + BLOCK_END + "\n}"),
+    ("float* db, int rows, int m, void* stream) {",
+     "float* db, int rows, int m, void* stream, unsigned long long* tb) {"),
+]
+
+# kernel 8's second design (a block of 128 threads per row): stamps by
+# thread 0 ([1] the load, [2] the prologue, each after its barrier) and by
+# the slowest warp ([3] heads, [4] searches, [5] columns: atomicMax of each
+# warp's lane 0)
+WARP_PHASE = ("\n  __syncwarp();\n  if ((threadIdx.x & 31) == 0) "
+              "atomicMax(T + {k}, (unsigned long long)(clock64() - c0));")
+SECOND_GRAD_EDITS = [
+    ("namespace {", STAMPS + "\nnamespace {"),
+    ("""                          const double* px, double* heads, float* __restrict__ out, int m,
+                          bool full) {""",
+     """                          const double* px, double* heads, float* __restrict__ out, int m,
+                          bool full, unsigned long long* T, long long c0) {"""),
+    ("    nh += __popc(mask);\n  }\n  __syncwarp();\n  // 2.",
+     "    nh += __popc(mask);\n  }" + WARP_PHASE.format(k=3) + "\n  // 2."),
+    ("  }\n  __syncwarp();\n  // 3.", "  }" + WARP_PHASE.format(k=4) + "\n  // 3."),
+    ("    nh += __popc(mask);\n  }\n}\n",
+     "    nh += __popc(mask);\n  }" + WARP_PHASE.format(k=5) + "\n}\n"),
+    ("""                     float* __restrict__ db, int m) {
+  extern __shared__ float4 smem4[];""",
+     """                     float* __restrict__ db, int m, unsigned long long* tb) {
+  extern __shared__ float4 smem4[];""" + START),
+    ("""  __syncthreads();
+  const int unsorted = row_prologue<GT, false>(as, bs, x, nullptr, px, m);""",
+     """  __syncthreads();
+  if (threadIdx.x == 0) T[1] = clock64() - c0;
+  const int unsorted = row_prologue<GT, false>(as, bs, x, nullptr, px, m);
+  if (threadIdx.x == 0) T[2] = clock64() - c0;"""),
+    ("""    side_grad(bs, as, x, px, heads, da + base, m, unsorted & 2);
+  }
+}""",
+     """    side_grad(bs, as, x, px, heads, da + base, m, unsorted & 2, T, c0);
+  }
+  __syncthreads();
+  """ + BLOCK_END + "\n}"),
+    ("db + base, m, unsorted & 1);", "db + base, m, unsorted & 1, T, c0);"),
+    ("float* db, int rows, int m, void* stream) {",
+     "float* db, int rows, int m, void* stream, unsigned long long* tb) {"),
+]
+GRAD_THREADS = 128  # the second design's block, which owns one row
+
 
 # (text of the first design's source, its instrumented replacement); each
 # must occur in the source
@@ -169,9 +249,10 @@ def ptxas_lines(log: str, kernel: str):
 
 def stamp_barriers(src: str, kernel: str, launch_args: str, signature: str) -> str:
     """The walk's source with a stamp after every barrier of ``kernel``'s
-    body, at its start and at its end; ``launch_args`` and ``signature``:
-    the text of its launch's arguments and of its C function's parameters
-    up to the stream, each given the stamp buffer."""
+    body (and after its call of ``row_prologue``, which ends in one), at its
+    start and at its end; ``launch_args`` and ``signature``: the text of its
+    launch's arguments and of its C function's parameters up to the stream,
+    each given the stamp buffer."""
     i = src.index(f"\n{kernel}(")
     sig_end = src.index(") {", i)
     src = src[:sig_end] + ", unsigned long long* tb" + src[sig_end:]
@@ -180,13 +261,12 @@ def stamp_barriers(src: str, kernel: str, launch_args: str, signature: str) -> s
     while depth:
         depth += {"{": 1, "}": -1}.get(src[end], 0)
         end += 1
-    text = src[body:end - 1]
-    parts = text.split("__syncthreads();")
-    if len(parts) > 12:
+    parts = re.split(r"(__syncthreads\(\);|row_prologue<[^;]*;)", src[body:end - 1])
+    if len(parts) > 23:
         raise SystemExit(f"{kernel}: more barriers than stamps")
     text = parts[0] + "".join(
-        f"__syncthreads(); if (threadIdx.x == 0) T[{k}] = clock64() - c0;" + part
-        for k, part in enumerate(parts[1:], start=1))
+        f"{barrier} if (threadIdx.x == 0) T[{k}] = clock64() - c0;" + part
+        for k, (barrier, part) in enumerate(zip(parts[1::2], parts[2::2]), start=1))
     src = (src[:body] + START + text + "\n  __syncthreads();\n  " + BLOCK_END + "\n"
            + src[end - 1:])
     for old, new in ((launch_args + ");", launch_args + ", tb);"),
@@ -198,21 +278,38 @@ def stamp_barriers(src: str, kernel: str, launch_args: str, signature: str) -> s
     return src
 
 
+KERNELS = {"merge": "coupling_fwd_kernel", "merge_grad": "coupling_grad_kernel",
+           "refgrad": "refgrad_kernel"}
+
+
 def instrument(src_path: str, name: str):
     """(the instrumented library, ptxas -v lines of the unmodified kernel,
-    the design: "first" or "second")."""
+    the design: "first" or "second"); the unmodified source is built too,
+    into ``lib<name>_timeline_plain.so``."""
     src = open(src_path).read()
     here = os.path.dirname(os.path.abspath(src_path))
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     log = nvcc(src_path, str(_build.BUILD_DIR / f"lib{name}_timeline_plain.so"), here)
-    kernel = "coupling_fwd_kernel" if name == "merge" else "refgrad_kernel"
-    design = "second" if "copy_slot<" in src else "first"
-    if design == "first":
+    kernel = KERNELS[name]
+    if name == "merge_grad":
+        design = "first" if "count_above<true>" in src else "second"
+        for old, new in FIRST_GRAD_EDITS if design == "first" else SECOND_GRAD_EDITS:
+            if src.count(old) != 1:
+                raise SystemExit(f"{src_path}: kernel 8's {design} design without {old[:60]!r}")
+            src = src.replace(old, new)
+        src, n = re.subn(r"\(a, b, x, da, db,\s*m\);", "(a, b, x, da, db, m, tb);", src)
+        if n != 1:
+            raise SystemExit(f"{src_path}: kernel 8's launch not found")
+        src = src.replace("}  // namespace", "}  // namespace\n" + OCCUPANCY
+                          + f'extern "C" void* timeline_kernel() {{ return (void*){kernel}; }}\n')
+    elif "copy_slot<" not in src:
+        design = "first"
         for old, new in FIRST_MERGE_EDITS if name == "merge" else FIRST_REFGRAD_EDITS:
             if old not in src:
                 raise SystemExit(f"{src_path} is not the first design: missing {old[:60]!r}")
             src = src.replace(old, new)
     else:
+        design = "second"
         src = src.replace("namespace {", STAMPS + "\nnamespace {", 1)
         src = src.replace("}  // namespace", "}  // namespace\n" + OCCUPANCY
                           + f'extern "C" void* timeline_kernel() {{ return (void*){kernel}; }}\n')
@@ -241,6 +338,7 @@ def occupancy(lib, threads: int, shmem: int) -> int:
 def run_stamps(launch, rows: int, dev) -> np.ndarray:
     tb = torch.zeros((rows, 16), dtype=torch.int64, device=dev)
     for _ in range(2):  # the second launch is read
+        tb.zero_()
         _build.check(launch(tb.data_ptr(), torch.cuda.current_stream().cuda_stream),
                      "instrumented kernel")
         torch.cuda.synchronize()
@@ -263,9 +361,10 @@ def waves(t: np.ndarray):
 
 
 def report(kernel: str, tag: str, t: np.ndarray, ptxas, blocks_per_sm: int, phases,
-           work: np.ndarray) -> None:
+           work: np.ndarray, extra=None) -> None:
     """One JSON line; ``phases``: (name, stamp column) in order, ending at
-    the block's end; ``work``: each row's measure of work."""
+    the block's end; ``work``: each row's measure of work; ``extra``: more
+    keys of the line."""
     most, resident, n_waves, sms = waves(t)
     block = t[:, 12]
     slow = block >= np.percentile(block, 90)
@@ -293,6 +392,7 @@ def report(kernel: str, tag: str, t: np.ndarray, ptxas, blocks_per_sm: int, phas
     if phases[-2][0].startswith("search"):
         res["search_warp_spread_cycles_median"] = float(np.median(t[:, 4:12].max(1)
                                                                   - t[:, 4:12].min(1)))
+    res.update(extra or {})
     print(json.dumps(res))
 
 
@@ -300,11 +400,66 @@ def runs_per_row(s: torch.Tensor) -> np.ndarray:
     return (1 + (s[:, 1:] != s[:, :-1]).sum(1)).cpu().numpy().astype(np.float64)
 
 
+def tied_columns(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    """Per row, the columns l whose query b_l equals some a_k (#{a >= b_l}
+    > #{a > b_l}; a nonincreasing): where kernel 8 needs a second search."""
+    neg_a, neg_b = (-a).contiguous(), (-b).contiguous()
+    tie = (torch.searchsorted(neg_a, neg_b, right=True)
+           > torch.searchsorted(neg_a, neg_b, right=False))
+    return tie.sum(1).cpu().numpy().astype(np.float64)
+
+
+def grad_timeline(lib, plain, ptxas, design: str, name: str, rows_list, dev) -> None:
+    """Kernel 8 (db only) on the gated step's real rows: the stamps of the
+    first of ``rows_list``, the unmodified kernel's device ms over the
+    others."""
+    a, b, xd = rows_list[0]
+    rows, m = a.shape
+    db = torch.empty_like(b)
+    t = run_stamps(lambda tb, s: lib.coupling_grads_f32(
+        a.data_ptr(), b.data_ptr(), xd.data_ptr(), None, db.data_ptr(), rows, m, s, tb), rows, dev)
+    if design == "first":  # 256 threads, float64 block scan, two searches per column
+        threads, shmem = 256, (m + 1) * 8 + 2 * m * 4
+        phases = [("load (behind an added barrier)", t[:, 1]), ("x prefix", t[:, 2]),
+                  ("sortedness check", t[:, 3]), ("searches (slowest warp)", t[:, 4:12].max(1)),
+                  ("block end", t[:, 12])]
+    else:  # one search per distinct query of a warp
+        threads = GRAD_THREADS
+        shmem = 8 * ((m + 7) & ~3) + (m + 1) * 8 + 8 * threads * -(-m // threads)
+        phases = [("load", t[:, 1]), ("prologue: sortedness, x, PX", t[:, 2]),
+                  ("heads (slowest warp)", t[:, 3]), ("searches (slowest warp)", t[:, 4]),
+                  ("columns (slowest warp)", t[:, 5]), ("block end", t[:, 12])]
+
+    def unmodified(a_, b_, x_):
+        out = torch.empty_like(b_)
+        _build.check(plain.coupling_grads_f32(a_.data_ptr(), b_.data_ptr(), x_.data_ptr(), None,
+                                              out.data_ptr(), rows, m,
+                                              torch.cuda.current_stream().cuda_stream),
+                     "coupling_grads_f32")
+        return out
+
+    ties = tied_columns(a, b)
+    report(f"8 coupling_grad_kernel ({design} design), db only", f"{name} gated real [{rows}, {m}]",
+           t, ptxas, occupancy(lib, threads, shmem), phases, runs_per_row(b),
+           {"work": "distinct values of b per row",
+            "tied_columns_per_row_median_max": [float(np.median(ties)), float(ties.max())],
+            "corr_block_cycles_tied_columns": float(np.corrcoef(ties, t[:, 12])[0, 1]),
+            "unmodified_device_ms": cs.device_ms(unmodified, rows_list[1:],
+                                                 "coupling_grad_kernel")})
+
+
 def main() -> int:
     if len(sys.argv) != 3 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
+    grad, grad_ptxas, grad_design = instrument(sys.argv[1], "merge_grad")
+    grad.coupling_grads_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 2
+    grad_plain = ctypes.CDLL(str(_build.BUILD_DIR / "libmerge_grad_timeline_plain.so"))
+    grad_plain.coupling_grads_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     merge, merge_ptxas, merge_design = instrument(sys.argv[1], "merge")
+    merge_prologue = "row_prologue<" in open(sys.argv[1]).read()  # kernel 4 on the shared prologue
     refgrad, refgrad_ptxas, refgrad_design = instrument(sys.argv[2], "refgrad")
     merge.coupling_forward_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p] * 2
@@ -313,8 +468,14 @@ def main() -> int:
     dev = torch.device("cuda")
     print(cs.card_line())
     torch.manual_seed(0)
-    x = torch.from_numpy(cs.make_requests(get_experiment("SOT-2048"), dev, 1, seed=3000)[0]).to(dev)
+    batches = [torch.from_numpy(v).to(dev) for v in cs.make_requests(
+        get_experiment("SOT-2048"), dev, 1 + cs.TIMING_INPUTS, seed=3000)]
+    x = batches[0]
     for name in ("SOT-2048", "SOT-512"):
+        gated = build_modules(get_experiment(name), device=dev, kernels=cs.GATED)
+        cs.load_golden_weights(gated, cs.GOLDEN if name == "SOT-2048" else cs.GOLDEN_512)
+        grad_timeline(grad, grad_plain, grad_ptxas, grad_design, name,
+                      [cs.complements(*cs.sot_rows(gated, v)) for v in batches], dev)
         mod = build_modules(get_experiment(name), device=dev)
         cs.load_golden_weights(mod, cs.GOLDEN if name == "SOT-2048" else cs.GOLDEN_512)
         alpha, beta, gaug = cs.sot_rows(mod, x)
@@ -332,8 +493,10 @@ def main() -> int:
                       ("reduce and write", t[:, 12])]
         else:  # the merge-path walk over the elements
             threads, shmem = 128, 2 * slot + (2 * m + 1) * 8
-            phases = [(p, t[:, k + 1]) for k, p in enumerate(
-                ("load", "scan", "prefix PX", "walk"))] + [("reduce and write", t[:, 12])]
+            names = (("load", "prologue: sortedness, x, PX", "walk") if merge_prologue
+                     else ("load", "scan", "prefix PX", "walk"))
+            phases = [(p, t[:, k + 1]) for k, p in enumerate(names)] + [
+                ("reduce and write", t[:, 12])]
         report(f"4 coupling_fwd_kernel ({merge_design} design)", f"{name} real [{rows}, {m}]",
                t, merge_ptxas, occupancy(merge, threads, shmem), phases,
                runs_per_row(a) + runs_per_row(b))
