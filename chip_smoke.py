@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the SOT-2048 serving
 path (predict), the SOT-2048 train step, the SOT-512 family's train step
-and evaluation, SOT-2048 evaluation with the pitch corrections, and the
-gated train step (the ``full`` merge route, the
+and evaluation, SOT-2048 evaluation with the pitch corrections, the
+training run through the CLI (train, resume, evaluate, predict, probes,
+MSS-LogLin's roll-off), and the gated train step (the ``full`` merge route, the
 STFT frontend and the conv kernels: ``KernelGates(w2_merge="full",
 conv=True, stft_frontend=True)``).
 
@@ -148,6 +149,28 @@ Phases (any failure raises and the script exits non-zero):
                steps; then, information only, the device busy ms of one
                SOT-2048 step under auto (cuDNN f32 convs) beside CONV_F32
                (kernels 10 and 11 in 3xTF32), profiled in turns
+ 11. train-run — the training run through the CLI, in this process, at full
+               width on the config's 4000-clip dataset (a 2800-clip train
+               split: 43 steps an epoch at batch 64): cli train SOT-2048
+               --kernels auto for 3 epochs, an evaluation after each, and
+               --final-eval: train and val records at steps 43, 86 and 129
+               with the JAX package's keys, best_metrics.json equal to the val
+               record of lowest LSD, best-lsd saved at its step, both
+               checkpoint tags, finite test_metrics{,_octcorr,_comb}.json,
+               kernels 1-5 launched during the run; the `last` checkpoint
+               equal to the in-memory state and restored bit for bit into
+               fresh modules and state (parameters, Adam's moments and steps,
+               LambdaLR, the dropout generator, the step); two resumes from it
+               for one more epoch, each in default_rng(seed).permutation(43)'s
+               order (JAX's resume order), their parameters compared; cli
+               evaluate of best-lsd on the val split against the best val
+               record (EVAL_REL, EVAL_FRAME); cli predict from best-lsd on 64
+               clips; SOT-2048-SS-Probes with two probes of one epoch, the run
+               going on from the probe of lower val LSD (its parameters and
+               its optimizer state); MSS-LogLin 4 train steps and its roll-off
+               render on the card against the CPU (the synth's limits), the
+               FIR alone within ROLL_OFF_LIMIT; each run's host-clock steps/s
+               and samples_per_sec records beside the card line
 
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations, device times torch.profiler; a [profile] line sums the
@@ -173,6 +196,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from sot_tpu_torch import cli as cli_lib
 from sot_tpu_torch import data as data_lib
 from sot_tpu_torch import metrics as metrics_lib
 from sot_tpu_torch.configs import get_experiment
@@ -188,6 +212,7 @@ from sot_tpu_torch.ops.kernels import merge as kmerge
 from sot_tpu_torch.ops.kernels import plane as kplane
 from sot_tpu_torch.ops.kernels import refgrad as krefgrad
 from sot_tpu_torch.models import synths as synths_lib
+from sot_tpu_torch.ops import fir as fir_lib
 from sot_tpu_torch.ops import wasserstein as wasserstein_lib
 from sot_tpu_torch.ops.kernels import stft as kstft
 from sot_tpu_torch.ops.kernels import synth as ksynth
@@ -195,6 +220,7 @@ from sot_tpu_torch.ops.numerics import exp_sigmoid, get_cqt_n_bins
 from sot_tpu_torch.ops.oscillator import get_harmonic_frequencies, remove_above_nyquist
 from sot_tpu_torch.ops.wasserstein import clipped_cdfs
 from sot_tpu_torch.ops.windows import get_window, hann_window
+from sot_tpu_torch.training import checkpoint as ckpt_lib
 from sot_tpu_torch.training import trainer
 from sot_tpu_torch.training.trainer import build_modules, predict
 
@@ -2353,7 +2379,8 @@ def timed_steps(mod, state, x_all, offsets):
     for lo in offsets:
         t0 = time.perf_counter()
         logs = trainer.train_steps(mod, state, x_all, [lo])
-        torch.cuda.synchronize()
+        if mod.device.type == "cuda":
+            torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times, logs
 
@@ -2473,10 +2500,11 @@ def check_eval_512(cfg, dev):
     eval_metrics_check("eval-512", got, ref)
 
 
-def eval_metrics_check(phase, got, ref) -> None:
-    """The port's ``evaluate`` metrics against JAX's: LSD, MSE, MSS and the
-    loss terms within EVAL_REL, the pitch accuracies and the octave
-    difference within one frame (EVAL_FRAME)."""
+def eval_metrics_check(phase, got, ref, ref_name="JAX") -> None:
+    """The port's ``evaluate`` metrics against JAX's (or another reference,
+    ``ref_name``): LSD, MSE, MSS and the loss terms within EVAL_REL, the
+    pitch accuracies and the octave difference within one frame
+    (EVAL_FRAME)."""
     require(set(got) == set(ref), f"eval metric names {sorted(got)} != {sorted(ref)}")
     frame_wise = ("raw_pitch_accuracy", "raw_chroma_accuracy", "octave_difference")
     misses = []
@@ -2484,11 +2512,11 @@ def eval_metrics_check(phase, got, ref) -> None:
         d = abs(got[k] - ref[k])
         ok = d <= EVAL_FRAME + 1e-7 if k in frame_wise else d <= EVAL_REL * abs(ref[k])
         misses += [] if ok else [k]
-        print(f"[{phase}] {k}: port {got[k]:.6f} JAX {ref[k]:.6f} |d| {d:.3e} ("
+        print(f"[{phase}] {k}: port {got[k]:.6f} {ref_name} {ref[k]:.6f} |d| {d:.3e} ("
               + (f"limit {EVAL_FRAME:.3e}, one frame)" if k in frame_wise
                  else f"rel {d / abs(ref[k]):.3e}, limit {EVAL_REL})"))
     require(all(math.isfinite(v) for v in got.values()), f"{phase}: non-finite eval metrics")
-    require(not misses, f"{phase}: eval metrics disagree with JAX: {misses}")
+    require(not misses, f"{phase}: eval metrics disagree with {ref_name}: {misses}")
 
 
 def eval_golden():
@@ -2589,6 +2617,358 @@ def check_eval_2048(cfg, dev) -> None:
     predict_comb_check(cfg, dev, g, GATED)
 
 
+# ---------------------------------------------------------------------------
+# [train-run]: the training run through the CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_RUN_EPOCHS = 3     # the run: 3 epochs, an evaluation after each
+ROLL_OFF_LIMIT = 1e-5    # the roll-off FIR, card against CPU on one signal: max|d| / max
+
+
+def run_records(out: str):
+    with open(os.path.join(out, "log.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def record_keys(cfg, split: str) -> set:
+    """The keys of the JAX package's ``train``, ``val`` and ``probe``
+    records for ``cfg`` (``sot_tpu/training/trainer.py:train``): the loss
+    terms, then grad_norm and samples_per_sec or the metric suite."""
+    terms = {f"loss/{'MSSLoss' if lc.kind == 'mss' else 'Wasserstein1D'}" for lc in cfg.losses}
+    terms |= {"loss/total", "split", "step"}
+    if split == "train":
+        return terms | {"grad_norm", "samples_per_sec"}
+    return terms | set(cfg.evaluation_metrics) | ({"probe"} if split == "probe" else set())
+
+
+class ChunkSpy:
+    """Wraps ``trainer.train_steps`` inside ``train()``: each chunk's batch
+    offsets, its state object, the parameters before and after it, and its
+    host-clock seconds (ending in a device synchronisation)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, mod, state, x_all, offsets):
+        before = {k: v.detach().cpu().clone() for k, v in mod.encoder.state_dict().items()}
+        t0 = time.perf_counter()
+        logs = self.fn(mod, state, x_all, offsets)
+        if mod.device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = {k: v.detach().cpu().clone() for k, v in mod.encoder.state_dict().items()}
+        self.calls.append({"offsets": np.asarray(offsets).copy(), "state": id(state),
+                           "before": before, "after": after, "seconds": seconds})
+        return logs
+
+
+class SaveSpy:
+    """Wraps ``checkpoint.save``: the (tag, step) of each save and a copy of
+    what ``last`` held in memory when it was written."""
+
+    def __init__(self, fn):
+        self.fn, self.saves, self.last = fn, [], None
+
+    def __call__(self, checkpoint_dir, mod, state, step, tag="best-lsd"):
+        path = self.fn(checkpoint_dir, mod, state, step, tag=tag)
+        self.saves.append((tag, int(step)))
+        if tag == "last":
+            self.last = ckpt_lib.payload(mod, state, step)
+        return path
+
+
+def run_cli(argv, chunks=False):
+    """``cli.main(argv)`` in this process, with ``train_steps`` and
+    ``checkpoint.save`` spied on; returns (stdout, ChunkSpy, SaveSpy)."""
+    import io
+
+    chunk_spy, save_spy = ChunkSpy(trainer.train_steps), SaveSpy(ckpt_lib.save)
+    buf = io.StringIO()
+    with mock.patch.object(trainer, "train_steps", chunk_spy), \
+            mock.patch.object(ckpt_lib, "save", save_spy), contextlib.redirect_stdout(buf):
+        rc = cli_lib.main(argv)
+    require(rc == 0, f"cli {argv[0]} returned {rc}")
+    return buf.getvalue(), chunk_spy, save_spy
+
+
+def tree_diff(a, b, path="") -> list:
+    """The paths at which two checkpoint payloads differ (tensors bit for bit)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        ok = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+              and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+        return [] if ok else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [d for k in a for d in tree_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in tree_diff(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def steps_per_sec(spy: ChunkSpy) -> float:
+    steps = sum(len(c["offsets"]) for c in spy.calls)
+    return steps / sum(c["seconds"] for c in spy.calls)
+
+
+def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
+    """[train-run]: ``cli train`` of SOT-2048 under ``auto`` for three epochs
+    with an evaluation after each and ``--final-eval``; its records, best
+    metrics, checkpoints and test metrics; kernels 1-5 launched during it;
+    the ``last`` checkpoint restored bit for bit into fresh modules; two
+    resumes from it for one more epoch (JAX's restarted batch order, their
+    parameters compared); ``cli evaluate`` of ``best-lsd`` against the best
+    val record; ``cli predict`` from it on 64 clips; SOT-2048-SS-Probes with
+    two probes; MSS-LogLin 4 train steps and its roll-off on the card
+    against the CPU. ``overrides`` and ``dataset_size`` shrink the configs
+    (the CPU rehearsal in the tests); the card runs them at full width."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    overrides = dict(overrides or {})
+    flags = [a for k, v in overrides.items() for a in ("--set", f"{k}={json.dumps(v)}")]
+    if dataset_size:
+        flags += ["--dataset-size", str(dataset_size)]
+    flags += device_flags(dev)
+    cfg = get_experiment("SOT-2048", **overrides,
+                         **({"dataset_size": dataset_size} if dataset_size else {}))
+    bs = cfg.batch_size
+    epoch = int((1 - 0.2 - 0.1) * cfg.dataset_size) // bs  # data.random_split's train share
+    steps = TRAIN_RUN_EPOCHS * epoch
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_run_", dir=os.path.join(ROOT, "runs"))
+    card = card_line() if dev.type == "cuda" else "cpu"
+    try:
+        out = os.path.join(tmp, "run")
+        reset_launches()
+        t0 = time.perf_counter()
+        _, chunks, saves = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+                                    "--steps", str(steps), "--eval-every", str(epoch),
+                                    "--final-eval", "--out", out] + flags)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        records = run_records(out)
+        train_recs = [r for r in records if r["split"] == "train"]
+        val_recs = [r for r in records if r["split"] == "val"]
+        want = [epoch * (i + 1) for i in range(TRAIN_RUN_EPOCHS)]
+        print(f"[train-run] cli train SOT-2048 --kernels auto --steps {steps} --eval-every "
+              f"{epoch} --final-eval: {len(records)} records, train at "
+              f"{[int(r['step']) for r in train_recs]}, val at "
+              f"{[int(r['step']) for r in val_recs]}, val LSD "
+              f"{[round(r['log_spectral_distance'], 4) for r in val_recs]}; checkpoints saved "
+              f"{saves.saves}; {wall:.1f} s of host clock in all")
+        require([int(r["step"]) for r in train_recs] == want, "train records at the wrong steps")
+        require([int(r["step"]) for r in val_recs] == want, "val records at the wrong steps")
+        require(all(set(r) == record_keys(cfg, "train") for r in train_recs),
+                f"train record keys {sorted(train_recs[0])} differ from JAX's")
+        require(all(set(r) == record_keys(cfg, "val") for r in val_recs),
+                f"val record keys {sorted(val_recs[0])} differ from JAX's")
+        require(all(math.isfinite(v) for r in records for v in r.values()
+                    if isinstance(v, float)), "non-finite values in the run's records")
+        with open(os.path.join(out, "best_metrics.json")) as fh:
+            best = json.load(fh)
+        best_rec = min(val_recs, key=lambda r: r["log_spectral_distance"])
+        require(best == {k: v for k, v in best_rec.items() if k not in ("split", "step")},
+                "best_metrics.json is not the val record of lowest LSD")
+        best_step = int(best_rec["step"])
+        require([s for t, s in saves.saves if t == "best-lsd"][-1] == best_step,
+                "best-lsd was not saved at the best val record's step")
+        ckpts = os.path.join(out, "checkpoints")
+        require(sorted(os.listdir(ckpts)) == ["best-lsd", "last"],
+                f"checkpoint tags {sorted(os.listdir(ckpts))}")
+        for name in ("test_metrics.json", "test_metrics_octcorr.json", "test_metrics_comb.json"):
+            with open(os.path.join(out, name)) as fh:
+                m = json.load(fh)["test_metrics"]
+            require(set(m) == record_keys(cfg, "val") - {"split", "step"} and
+                    all(math.isfinite(v) for v in m.values()), f"{name}: bad test metrics")
+        print(f"[train-run] test RPA plain / octcorr / comb: "
+              + " / ".join(f"{json.load(open(os.path.join(out, n)))['test_metrics']['raw_pitch_accuracy']:.6f}"
+                           for n in ("test_metrics.json", "test_metrics_octcorr.json",
+                                     "test_metrics_comb.json")))
+        print(f"[train-run] launches during cli train (train steps, evaluations, final "
+              f"evaluation): {launches}")
+        if dev.type == "cuda":
+            require(all(launches[k] > 0 for k in ("cqt_project", "synth_render", "synth_backward",
+                                                    "merge_coupling", "ref_grad_beta")),
+                    "a kernel of SOT-2048's auto route (1-5) was not launched during cli train")
+        print(f"[train-run] host clock: {steps_per_sec(chunks):.2f} train steps/s over the "
+              f"{len(chunks.calls)} epochs (each ending in a synchronisation); samples_per_sec "
+              f"records {[round(r['samples_per_sec'], 1) for r in train_recs]} | {card}")
+
+        # the checkpoint round trip: `last` into fresh modules and state
+        last = os.path.join(ckpts, "last")
+        require(saves.last is not None, "no in-memory copy of `last` was taken")
+        on_disk = tree_diff(ckpt_lib.load(last), saves.last)
+        mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        state = trainer.init_state(mod, seed=cfg.seed + 1)
+        step = ckpt_lib.restore(last, mod, state)
+        restored = tree_diff(ckpt_lib.payload(mod, state, step), saves.last)
+        n_tensors = sum(1 for _ in mod.encoder.state_dict()) + 3 * len(
+            state.optimizer.state_dict()["state"])
+        print(f"[train-run] checkpoint `last` (step {step}): the file against the in-memory "
+              f"state: {len(on_disk)} differences; restored into fresh modules and state: "
+              f"{len(restored)} differences over the encoder's parameters, Adam's moments and "
+              f"steps ({n_tensors} tensors), the LambdaLR state, the generator state and the step")
+        require(not on_disk and not restored, f"checkpoint round trip differs: {on_disk + restored}")
+        require(step == steps and state.scheduler.last_epoch == steps,
+                "the restored step or schedule is wrong")
+
+        # resume twice from `last`: one more epoch each, in JAX's restarted
+        # order; on the card again with cuDNN's deterministic algorithms, the
+        # one setting that makes two identical steps bit-equal there (its
+        # default f32 conv backward is not deterministic)
+        for deterministic in (False, True) if dev.type == "cuda" else (False,):
+            resume_twice(cfg, dev, tmp, last, steps, epoch, flags, card, deterministic)
+
+        # evaluate and predict from the run's best-lsd checkpoint
+        best_ckpt = os.path.join(ckpts, "best-lsd")
+        # the run's train_config.json travels with the checkpoint
+        text, _, _ = run_cli(["evaluate", "--ckpt", best_ckpt, "--split", "val"]
+                             + device_flags(dev))
+        got = json.loads(text)["val_metrics"]
+        eval_metrics_check("train-run evaluate", got, best, "best val record")
+        clips = os.path.join(tmp, "clips.npy")
+        with np.load(GOLDEN) as z:
+            np.save(clips, z["x"])
+            frames = -(-(z["x"].shape[1] - 1) // cfg.cqt_hop_length)
+        preds = os.path.join(tmp, "preds.npz")
+        run_cli(["predict", "--ckpt", best_ckpt, "--input", clips, "--output", preds]
+                + device_flags(dev))
+        with np.load(preds) as z:
+            shapes = {k: z[k].shape for k in z.files}
+            finite = all(bool(np.isfinite(z[k]).all()) for k in z.files)
+        print(f"[train-run] cli predict --ckpt best-lsd on {BATCH} clips: {shapes}")
+        require(finite and shapes == {"pitch_hz": (BATCH, frames), "pitch_unit": (BATCH, frames),
+                                      "weights": (BATCH, frames, cfg.n_modes)},
+                "cli predict from the run checkpoint: bad output")
+
+        # init-probe restarts: two probes of one epoch, then one epoch more
+        out_p = os.path.join(tmp, "probes")
+        cfg_p = get_experiment("SOT-2048-SS-Probes", **overrides, n_init_probes=2,
+                               probe_steps=epoch)
+        _, chunks_p, _ = run_cli(["train", "--experiment", "SOT-2048-SS-Probes", "--kernels",
+                                  "auto", "--set", "n_init_probes=2", "--set",
+                                  f"probe_steps={epoch}", "--steps", str(2 * epoch), "--out",
+                                  out_p] + flags)
+        recs = run_records(out_p)
+        probes = [r for r in recs if r["split"] == "probe"]
+        trains = [r for r in recs if r["split"] == "train"]
+        require(len(probes) == 2 and [int(r["probe"]) for r in probes] == [0, 1],
+                f"{len(probes)} probe records")
+        require(all(set(r) == record_keys(cfg_p, "probe") for r in probes), "probe record keys")
+        require(int(trains[0]["step"]) == 2 * epoch, "the first train record after the probes "
+                                                     "is not at 2 epochs")
+        win = min(range(2), key=lambda i: probes[i]["log_spectral_distance"])
+        require(len(chunks_p.calls) == 3, f"{len(chunks_p.calls)} chunks, expected 3")
+        main_chunk, winner = chunks_p.calls[2], chunks_p.calls[win]
+        same = (main_chunk["state"] == winner["state"]
+                and not tree_diff(main_chunk["before"], winner["after"]))
+        print(f"[train-run] SOT-2048-SS-Probes, 2 probes of {epoch} steps: val LSD "
+              f"{[round(r['log_spectral_distance'], 4) for r in probes]}; the run went on from "
+              f"probe {win} (its parameters and its optimizer state: {same}); first train "
+              f"record at step {int(trains[0]['step'])}; host clock "
+              f"{steps_per_sec(chunks_p):.2f} steps/s, samples_per_sec "
+              f"{trains[0]['samples_per_sec']:.1f} | {card}")
+        require(same, "the continued run is not the probe of lowest val LSD")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_mss_loglin(dev, overrides, dataset_size, x_all)
+    print(f"[train-run] the phase took {time.perf_counter() - t_phase:.1f} s of host clock")
+
+
+def resume_twice(cfg, dev, tmp, last, steps, epoch, flags, card, deterministic) -> None:
+    """[train-run] two ``cli train --resume last`` runs of one more epoch:
+    each in ``default_rng(seed).permutation(epoch)``'s order (JAX's resume
+    order), their parameters compared; under ``deterministic`` (cuDNN's
+    deterministic algorithms) required bit-equal."""
+    bs, tag = cfg.batch_size, "cudnn.deterministic" if deterministic else "default"
+    resumed = []
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        for i in range(2):
+            out_r = os.path.join(tmp, f"resume-{tag}-{i}")
+            _, chunks_r, _ = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+                                      "--steps", str(steps + epoch), "--eval-every", str(epoch),
+                                      "--out", out_r, "--resume", last] + flags)
+            recs = [r for r in run_records(out_r) if r["split"] == "train"]
+            order = np.random.default_rng(cfg.seed).permutation(epoch) * bs
+            require([int(r["step"]) for r in recs] == [steps + epoch],
+                    f"resume: train records at {[r['step'] for r in recs]}")
+            require(len(chunks_r.calls) == 1
+                    and np.array_equal(chunks_r.calls[0]["offsets"], order),
+                    "resume: the batch order is not default_rng(seed).permutation(epoch)'s")
+            resumed.append(ckpt_lib.load(os.path.join(out_r, "checkpoints", "last")))
+            print(f"[train-run] resume {i + 1} ({tag}) from step {steps}: train record at step "
+                  f"{int(recs[0]['step'])}, batch order default_rng({cfg.seed})"
+                  f".permutation({epoch}) (JAX's resume order); host clock "
+                  f"{steps_per_sec(chunks_r):.2f} steps/s, samples_per_sec "
+                  f"{recs[0]['samples_per_sec']:.1f} | {card}")
+    finally:
+        torch.backends.cudnn.deterministic = old
+    d = max(float((resumed[0]["encoder"][k] - resumed[1]["encoder"][k]).abs().max())
+            for k in resumed[0]["encoder"])
+    diffs = tree_diff(resumed[0], resumed[1])
+    print(f"[train-run] two resumes from one checkpoint ({tag}): parameters max|d| {d:.3e}; "
+          f"bit-equal {not diffs} ({len(diffs)} differing tensors or fields: {diffs[:6]})")
+    if deterministic:
+        require(not diffs, "two resumes under cuDNN's deterministic algorithms differ")
+
+
+def device_flags(dev) -> list:
+    return [] if dev.type == "cuda" else ["--device", str(dev)]
+
+
+def check_mss_loglin(dev, overrides, dataset_size, x_all) -> None:
+    """[train-run] MSS-LogLin: 4 train steps (finite loss and grad_norm) and
+    the roll-off: the synth render with the roll-off on the card against the
+    CPU from the same controls (the synth's own limits), and the FIR alone
+    on the card's unfiltered render against the CPU's FIR of it
+    (ROLL_OFF_LIMIT)."""
+    cfg = get_experiment("MSS-LogLin", **overrides,
+                         **({"dataset_size": dataset_size} if dataset_size else {}))
+    if x_all is None:
+        x_all = torch.from_numpy(data_lib.peak_normalize(
+            data_lib.dataset_from_config(cfg, device=dev)["train"].x)).to(dev)
+    mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
+                        kernels="auto")
+    state = trainer.init_state(mod)
+    reset_launches()
+    epoch = len(x_all) // cfg.batch_size
+    times, logs = timed_steps(mod, state, x_all,
+                              (np.arange(TRAIN_STEPS) % epoch) * cfg.batch_size)
+    loss, gnorm = float(logs["loss/total"]), float(logs["grad_norm"])
+    print(f"[train-run] MSS-LogLin kernels=auto: {TRAIN_STEPS} steps x {cfg.batch_size} clips: "
+          f"step ms {', '.join(f'{v:.3f}' for v in times)}; last loss {loss:.6f}, grad_norm "
+          f"{gnorm:.6f}; launches {read_launches()}")
+    require(math.isfinite(loss) and math.isfinite(gnorm), "MSS-LogLin: non-finite loss")
+
+    synth = synths_lib.Sinusoidal(n_samples=cfg.n_samples, sample_rate=cfg.sample_rate,
+                                  amp_scale_fn=None, freq_scale_fn=None, harmonic=True,
+                                  apply_roll_off=True)
+    plain = dataclasses.replace(synth, apply_roll_off=False)
+    amps, freqs = synth_controls(np.random.default_rng(11), dev, cfg.sample_rate)
+    with torch.no_grad():
+        card = synth.get_signal(amps, freqs)
+        cpu = synth.get_signal(amps.cpu(), freqs.cpu())
+        raw = plain.get_signal(amps, freqs)
+        mag = fir_lib.slope_frequency_response(6.0, n_freqs=65, f_ref=500.0)[0]
+        fir_card = fir_lib.frequency_filter(raw, mag.to(dev).expand(raw.shape[0], -1))
+        fir_cpu = fir_lib.frequency_filter(raw.cpu(), mag.expand(raw.shape[0], -1))
+    err = float((card.cpu() - cpu).abs().max())
+    corr = float(np.corrcoef(card.cpu().numpy().ravel(), cpu.numpy().ravel())[0, 1])
+    fir_err = float((fir_card.cpu() - fir_cpu).abs().max() / fir_cpu.abs().max())
+    print(f"[train-run] MSS-LogLin roll-off render {tuple(card.shape)}, card against CPU from "
+          f"the same controls: max|d| {err:.3e} (limit 2e-2), corr {corr:.7f} (limit 0.9999); "
+          f"the FIR alone on one signal: max|d|/max {fir_err:.3e} (limit {ROLL_OFF_LIMIT}); the "
+          f"roll-off takes {float(raw.abs().max() / card.abs().max()):.3f}x off the peak")
+    require(err <= 2e-2 and corr > 0.9999, "MSS-LogLin: the roll-off render disagrees")
+    require(fir_err <= ROLL_OFF_LIMIT, "MSS-LogLin: the roll-off FIR on the card disagrees")
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2684,6 +3064,7 @@ def main() -> int:
             f"the gated SOT-2048 steps launched kernels 10 / 11 {conv_launches} times, "
             f"expected {4 * TRAIN_STEPS} / {2 * TRAIN_STEPS}")
     conv_gate_ab(cfg, dev, x_all)
+    check_train_run(dev, x_all=x_all)
     # each kernel's count from the run whose main path it is on (kernel 4 at
     # [1024, 257]: SOT-512 auto; kernels 6 and 7 at each loss shape: SOT-2048
     # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258];

@@ -4,17 +4,22 @@ The JAX package ``sot_tpu`` is the reference; this package mirrors its layout
 module for module (``sot_tpu_torch/ops/cqt.py`` <-> ``sot_tpu/ops/cqt.py``)
 and imports nothing of it, nor of JAX.
 
-Layer map (this slice: the serving path, ``training.trainer.predict``):
+Layer map:
   ops/numerics, ops/windows     L0  safe math, pitch maps, windows
   ops/{cqt,resample,scan,       L1  DSP ops (plain PyTorch)
-       oscillator,stft}
+       oscillator,stft,fir,
+       wasserstein}
   ops/kernels + csrc/           --  hand-written CUDA kernels (sm_90a):
-                                    CQT projection, synth forward
-  features                      L2  CQT feature extractor
+                                    the eleven TPU kernels' counterparts
+  features, losses, metrics     L2  CQT/STFT features, MSS and SOT losses,
+                                    the metric suite and pitch corrections
   models/                       L3  PESTO encoder + frozen sinusoidal synth
-  training/trainer              L5  build_modules / forward / predict
-  configs, cli                  L6  experiment registry + ``predict`` CLI
-  data                          L7  synthetic harmonic-sinusoid clips
-  convert                       --  flax param tree <-> torch state dict
-  device                        --  device resolution + precision policy
+  training/trainer              L5  build_modules / train steps / evaluate /
+                                    predict / train (the training run)
+  training/{checkpoint,logging} L5  run checkpoints, JSONL records
+  configs, cli, analysis        L6  experiment registry, the CLI, the
+                                    pitch-error report
+  data                          L7  synthetic clips, the released .pth
+  convert                       --  flax param / optimizer trees <-> torch
+  kernel_gates, device          --  kernel gates, device + precision policy
 """

@@ -4,7 +4,10 @@
 numpy arrays, with or without the top-level ``"params"`` key) onto the
 port's ``state_dict``; ``params_to_flax`` is its inverse, and
 ``grads_to_flax`` maps the parameters' ``.grad`` the same way, so gradients
-compare per flax leaf. Layouts:
+compare per flax leaf; ``optimizer_state_from_flax`` loads the JAX
+package's Adam moments and count into the port's optimizer and schedule,
+so a run that JAX trained can go on in the port once its arrays are
+exported (the port reads no Orbax checkpoint). Layouts:
 
   flax                              torch
   LayerNorm_0/{scale,bias} (285, 1)  layernorm.{weight,bias}  (1, 285)
@@ -112,3 +115,53 @@ def grads_to_flax(module: torch.nn.Module) -> Dict[str, Any]:
     parameter has no gradient)."""
     return params_to_flax({name: torch.zeros_like(p) if p.grad is None else p.grad
                            for name, p in module.named_parameters()})
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The ``scale_by_adam`` element (``mu``, ``nu``, ``count``) of an optax
+    state: a ``ScaleByAdamState`` or a sequence (the chain's states) that
+    holds one."""
+    if all(hasattr(opt_state, k) for k in ("mu", "nu", "count")):
+        return {k: getattr(opt_state, k) for k in ("mu", "nu", "count")}
+    if isinstance(opt_state, (list, tuple)):
+        found = [s for s in (_adam_state(e) for e in opt_state) if s is not None]
+        if len(found) == 1:
+            return found[0]
+    return None
+
+
+def optimizer_state_from_flax(opt_state: Any, step: int, mod: Any, state: Any) -> None:
+    """Load the JAX package's optimizer state (``optax.chain(
+    add_decayed_weights, scale_by_adam, scale...)``, ``sot_tpu/training/
+    trainer.py:make_optimizer``, its leaves as numpy arrays) into the port's
+    ``state`` for ``mod.encoder``: ``mu`` -> ``exp_avg``, ``nu`` ->
+    ``exp_avg_sq`` (through ``params_from_flax``'s leaf map and transposes),
+    ``count`` -> each parameter's Adam ``step`` and the schedule's
+    ``last_epoch`` (the lr set to the schedule's value there), and ``step``
+    -> ``state.step``. The parameters themselves go through
+    ``params_from_flax``."""
+    from sot_tpu_torch.training.trainer import lr_multiplier
+
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no scale_by_adam state (mu, nu, count) found in opt_state")
+    count = int(np.asarray(adam["count"]))
+    mu, nu = params_from_flax(adam["mu"]), params_from_flax(adam["nu"])
+    names = [name for name, _ in mod.encoder.named_parameters()]
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise KeyError(f"optimizer moments do not match the encoder's parameters: "
+                       f"{sorted(set(mu) ^ set(names))}")
+    sd = state.optimizer.state_dict()
+    ids = sd["param_groups"][0]["params"]
+    if len(sd["param_groups"]) != 1 or len(ids) != len(names):
+        raise ValueError("the optimizer must hold the encoder's parameters in one group")
+    sd["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
+                       "exp_avg_sq": nu[name]} for i, name in zip(ids, names)}
+    state.optimizer.load_state_dict(sd)
+    sched = state.scheduler
+    sched.last_epoch = count
+    factor = lr_multiplier(mod.config, count)
+    for group, base in zip(state.optimizer.param_groups, sched.base_lrs):
+        group["lr"] = base * factor
+    sched._last_lr = [g["lr"] for g in state.optimizer.param_groups]
+    state.step = int(step)

@@ -128,9 +128,9 @@ def make_dataset(seed: int = 0, device: DeviceLike = None, **kwargs) -> Dict[str
 
 
 def dataset_from_config(cfg, device: DeviceLike = None) -> Dict[str, SplitArrays]:
-    """Splits for an ExperimentConfig, generated with the config's full
-    generation parameters. Loading the released ``.pth`` dataset
-    (``cfg.dataset_path``) comes with the evaluation slice: it raises."""
+    """Splits for an ExperimentConfig: the released ``.pth`` dataset if
+    ``cfg.dataset_path`` is set, else generated with the config's full
+    generation parameters."""
     if cfg.dataset_path:
         return load_pth_dataset(cfg.dataset_path)
     return make_dataset(
@@ -143,9 +143,23 @@ def dataset_from_config(cfg, device: DeviceLike = None) -> Dict[str, SplitArrays
 
 
 def load_pth_dataset(path: str) -> Dict[str, SplitArrays]:
-    raise NotImplementedError(
-        f"load_pth_dataset({path!r}): importing the released .pth dataset comes "
-        "with the evaluation slice, which is not ported yet (ROADMAP)")
+    """The reference's released torch dataset (e.g.
+    ``40_1950_4096_04_1_4000_8_1_harmonic.pth``): a dict of
+    ``{train,val[,test]}_tensors`` and ``{...}_thetas`` with ``frequency``
+    and ``weights``. Only tensors and containers are unpickled
+    (``weights_only``)."""
+    d = torch.load(path, map_location="cpu", weights_only=True)
+
+    def conv(tensors, thetas) -> SplitArrays:
+        return SplitArrays(x=np.asarray(tensors, np.float32),
+                           frequency=np.asarray(thetas["frequency"], np.float32),
+                           weights=np.asarray(thetas["weights"], np.float32))
+
+    out = {"train": conv(d["train_tensors"], d["train_thetas"]),
+           "val": conv(d["val_tensors"], d["val_thetas"])}
+    if "test_tensors" in d:
+        out["test"] = conv(d["test_tensors"], d["test_thetas"])
+    return out
 
 
 def iterate_batches(split: SplitArrays, batch_size: int,

@@ -26,7 +26,8 @@ from sot_tpu_torch.ops.stft import rfft_frequencies, stft_magnitude
 class STFT:
     """Magnitude STFT, time-major. ``kernels`` (a ``KernelGates`` or a
     preset name): its ``stft_frontend`` gate sends the transform to kernel
-    B9 where the JAX package's conditions hold."""
+    B9 where the JAX package's conditions hold, its ``dft_matmul`` gate the
+    |rfft| to one matmul."""
 
     n_fft: int = 1024
     hop_length: int = 256
@@ -37,9 +38,10 @@ class STFT:
 
     def __call__(self, audio: torch.Tensor, reduce: bool = False,
                  log: bool = False) -> torch.Tensor:
+        gates = resolve_gates(self.kernels)
         x = stft_magnitude(audio, size=self.n_fft,
                            overlap=1.0 - self.hop_length / self.n_fft, window=self.window,
-                           frontend=resolve_gates(self.kernels).stft_frontend)
+                           frontend=gates.stft_frontend, dft_matmul=gates.dft_matmul)
         if reduce:
             x = torch.mean(x, dim=1)
         if log or self.log:

@@ -19,9 +19,7 @@ Presets:
     CQT and synth kernels, gates in the JAX package, always run here.)
 
 Not mirrored: ``SOT_TPU_MERGE_ROWS`` and ``SOT_TPU_CONV_ROWS`` (TPU row
-tiles, which mean nothing to the CUDA kernels), and ``SOT_TPU_DFT_MATMUL``
-(a plain XLA matmul in place of the FFT, not a kernel; still to port, see
-ROADMAP).
+tiles, which mean nothing to the CUDA kernels).
 """
 
 from __future__ import annotations
@@ -64,6 +62,12 @@ class KernelGates:
     """``SOT_TPU_STFT_PALLAS``: the fused pad_end framing + window + real-DFT
     projection (kernel B9) for STFTs whose hop is a multiple of 128 and
     divides both the signal length and the FFT size."""
+    dft_matmul: bool = False
+    """``SOT_TPU_DFT_MATMUL``: |rfft| of the framed, windowed signal as one
+    f32 matmul (TF32 off) against the real-DFT matrix for n_fft <= 4096, in
+    place of the FFT, in the loss transform and the MSS loss (where
+    ``stft_frontend`` does not take the STFT). A matrix product outside any
+    Pallas kernel in the JAX package, so ``torch.matmul`` here."""
 
     def __post_init__(self):
         if self.w2_merge not in W2_MODES:

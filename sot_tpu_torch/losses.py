@@ -132,7 +132,7 @@ class Wasserstein1D:
 class MSSLoss:
     """Multi-scale spectrogram loss, DDSP-style. ``kernels``: the
     ``stft_frontend`` gate sends the scales whose hop is a multiple of 128
-    to kernel B9."""
+    to kernel B9, the ``dft_matmul`` gate the others' |rfft| to one matmul."""
 
     fft_sizes: Tuple[int, ...] = (2048, 1024, 512, 256, 128, 64)
     loss_type: str = "L1"
@@ -143,11 +143,12 @@ class MSSLoss:
     name = "MSSLoss"
 
     def __call__(self, target_audio: torch.Tensor, audio: torch.Tensor, **_kw) -> torch.Tensor:
-        frontend = resolve_gates(self.kernels).stft_frontend
+        gates = resolve_gates(self.kernels)
+        kw = {"frontend": gates.stft_frontend, "dft_matmul": gates.dft_matmul}
         loss = 0.0
         for size in self.fft_sizes:
-            target_mag = stft_magnitude(target_audio, size=size, overlap=0.75, frontend=frontend)
-            value_mag = stft_magnitude(audio, size=size, overlap=0.75, frontend=frontend)
+            target_mag = stft_magnitude(target_audio, size=size, overlap=0.75, **kw)
+            value_mag = stft_magnitude(audio, size=size, overlap=0.75, **kw)
             if self.mag_weight > 0:
                 loss = loss + self.mag_weight * mean_difference(
                     target_mag, value_mag, self.loss_type)

@@ -39,9 +39,15 @@ from sot_tpu_torch.ops.numerics import exp_sigmoid
 
 
 def _uniform_(p: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    """U(+-1/sqrt(fan_in)), drawn on the generator's device (a CPU generator
+    gives a parameter on the card the values it gives one on the CPU)."""
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
-        p.uniform_(-bound, bound, generator=generator)
+        if generator is None or generator.device == p.device:
+            p.uniform_(-bound, bound, generator=generator)
+        else:
+            p.copy_(torch.empty(p.shape, dtype=p.dtype, device=generator.device)
+                    .uniform_(-bound, bound, generator=generator))
 
 
 class GeneratorDropout(nn.Module):

@@ -7,9 +7,8 @@ The decoder has no parameters. Controls -> signal:
   get_signal:   hann-OLA amplitude envelopes, bilinear frequency envelopes,
                 oscillator bank — all through ``ops.kernels.synth.synth_render``
                 (the CUDA kernel on the card, the plain PyTorch version on
-                the CPU)
-
-The -6 dB/octave roll-off FIR (``apply_roll_off``) is not ported yet.
+                the CPU); with ``apply_roll_off``, the -6 dB/octave roll-off
+                FIR above 500 Hz after it (``ops/fir.py``, MSS-LogLin)
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from sot_tpu_torch.ops.fir import frequency_filter, slope_frequency_response
 from sot_tpu_torch.ops.kernels.synth import synth_render
 from sot_tpu_torch.ops.numerics import get_fn_by_name
 from sot_tpu_torch.ops.oscillator import get_harmonic_frequencies, remove_above_nyquist
@@ -39,12 +39,6 @@ class Sinusoidal:
     harmonic: bool = False
     apply_roll_off: bool = False
 
-    def __post_init__(self):
-        if self.apply_roll_off:
-            raise NotImplementedError(
-                "Sinusoidal(apply_roll_off=True) needs the roll-off FIR "
-                "(ops/fir.py), which is not ported yet (ROADMAP)")
-
     def get_controls(self, amplitudes: torch.Tensor,
                      frequencies: torch.Tensor) -> Dict[str, torch.Tensor]:
         """[batch, time, n_sinusoids] network outputs -> synth controls."""
@@ -62,8 +56,14 @@ class Sinusoidal:
     def get_signal(self, amplitudes: torch.Tensor,
                    frequencies: torch.Tensor) -> torch.Tensor:
         """Frame-rate controls -> [batch, n_samples] audio."""
-        return synth_render(amplitudes.contiguous(), frequencies.contiguous(),
-                            self.n_samples, self.sample_rate)
+        signal = synth_render(amplitudes.contiguous(), frequencies.contiguous(),
+                              self.n_samples, self.sample_rate)
+        if self.apply_roll_off:
+            # -6 dB/octave above 500 Hz (the MSS-LogLin experiment)
+            filter_mag = slope_frequency_response(6.0, n_freqs=65, f_ref=500.0)[0]
+            filter_mag = filter_mag.to(signal.device).expand(signal.shape[0], -1)
+            signal = frequency_filter(signal, filter_mag)
+        return signal
 
     def __call__(self, amplitudes: torch.Tensor, frequencies: torch.Tensor) -> torch.Tensor:
         controls = self.get_controls(amplitudes, frequencies)

@@ -11,13 +11,16 @@ Framing is ``Tensor.unfold``; its autograd is the overlap-add the JAX
 package writes out as a custom VJP (the same sums). With ``frontend`` (the
 ``stft_frontend`` gate, ``SOT_TPU_STFT_PALLAS`` in the JAX package) the
 framing, window and DFT run fused in kernel B9 (``ops/kernels/stft.py``)
-wherever the JAX package's conditions hold. ``center=True`` is the
+wherever the JAX package's conditions hold; with ``dft_matmul``
+(``SOT_TPU_DFT_MATMUL``) the |rfft| of the windowed frames is one f32
+matmul against the real-DFT matrix for n_fft <= 4096. ``center=True`` is the
 loudness path, which is not ported yet: it raises. Output is time-major
 [batch, frames, n_fft // 2 + 1].
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import numpy as np
@@ -68,6 +71,25 @@ def rfft_frequencies(n_fft: int, sample_rate: float) -> np.ndarray:
     return np.fft.rfftfreq(n_fft, d=1.0 / sample_rate).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _dft_matrix(n_fft: int) -> np.ndarray:
+    """Real-DFT basis [n_fft, 2 * (n_fft // 2 + 1)]: frames @ M = [re | im]
+    of the rfft (``sot_tpu/ops/stft.py:_dft_matrix``'s f32 table)."""
+    k = np.arange(n_fft // 2 + 1)
+    t = np.arange(n_fft)
+    ang = 2.0 * np.pi * t[:, None] * k[None, :] / n_fft
+    return np.concatenate([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def _dft_matmul_magnitude(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """|rfft(frames)| as one f32 matmul against ``_dft_matrix`` (full f32
+    under the port's precision policy, TF32 off, as the JAX package asks
+    for HIGHEST precision)."""
+    proj = torch.matmul(frames, torch.from_numpy(_dft_matrix(n_fft)).to(frames.device))
+    n_bins = n_fft // 2 + 1
+    return _complex_abs(proj[..., :n_bins], proj[..., n_bins:])
+
+
 def stft_magnitude(
     audio: torch.Tensor,
     size: int = 2048,
@@ -78,13 +100,15 @@ def stft_magnitude(
     time_major: bool = True,
     center: bool = False,
     frontend: bool = False,
+    dft_matmul: bool = False,
 ) -> torch.Tensor:
     """Magnitude STFT of [batch, T] audio -> [batch, frames, size//2+1].
 
     Hann window by default, a scipy window by name ('flattop'), 'ones' for
     rectangular, or an explicit array. ``frontend`` sends [batch, T] audio
     with a numpy window to kernel B9 where ``frontend_applicable`` holds
-    (``sot_tpu/ops/stft.py:206-222``).
+    (``sot_tpu/ops/stft.py:206-222``); else ``dft_matmul`` computes the
+    |rfft| of the windowed frames as one matmul for ``size`` <= 4096.
     """
     if center:
         raise NotImplementedError(
@@ -109,8 +133,11 @@ def stft_magnitude(
     else:
         win = torch.as_tensor(win, dtype=torch.float32, device=audio.device)
         frames = frame_signal(audio, size, hop_length, pad_end=pad_end)
-        spec = torch.fft.rfft(frames * win, dim=-1)
-        mag = _complex_abs(spec.real, spec.imag)
+        if dft_matmul and size <= 4096:
+            mag = _dft_matmul_magnitude(frames * win, size)
+        else:
+            spec = torch.fft.rfft(frames * win, dim=-1)
+            mag = _complex_abs(spec.real, spec.imag)
     if normalized:
         mag = mag / float(np.float32(np.sqrt(size)))
     if not time_major:

@@ -18,20 +18,24 @@
   * ``apply_octave_correction`` / ``apply_comb_correction`` — the
     unsupervised pitch corrections with the config's thresholds
   * ``predict`` — the deployment inference entry
+  * ``train`` — the training run: epochs of shuffled batches from the
+    device-resident train split, periodic evaluation on the val split,
+    the init-probe restarts, the best-LSD snapshot, checkpoints
+    (``checkpoint.py``) and JSONL records (``logging.py``)
 
 Parameters live in ``mod.encoder``; the optimizer, scheduler, dropout
 generator and step count in ``TrainState``. ``mod.kernels`` (a
 ``KernelGates``, ``kernel_gates.py``) holds the kernel gates that ``cli
 train --kernels`` and the env gates set in the JAX package: the SOT loss's
 route (``ops/wasserstein.w2_route``), the encoder's conv kernels and the
-STFT frontend. ``train()`` with its
-periodic evaluation, and checkpoints, come with a later slice (ROADMAP).
+STFT frontend.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -47,6 +51,8 @@ from sot_tpu_torch.kernel_gates import KernelGates, Kernels, resolve_gates
 from sot_tpu_torch.models.encoder import PESTOEncoder, predict_pitch
 from sot_tpu_torch.models.synths import Sinusoidal
 from sot_tpu_torch.ops.numerics import get_cqt_n_bins, hz_to_unit, unit_to_hz
+from sot_tpu_torch.training import checkpoint as ckpt_lib
+from sot_tpu_torch.training.logging import JsonlLogger
 
 
 @dataclasses.dataclass
@@ -425,3 +431,196 @@ def predict(mod: Modules, x, octave_correction: Optional[bool] = None
         elif octave_correction:
             out["pitch_hz"], out["pitch_unit"] = apply_octave_correction(mod, x, out["pitch_hz"])
         return out
+
+
+# ---------------------------------------------------------------------------
+# The training run
+# ---------------------------------------------------------------------------
+
+
+def probe_generator(cfg: ExperimentConfig, probe: int) -> torch.Generator:
+    """The CPU generator that initialises init probe ``probe``'s encoder:
+    seeded with the first 64-bit word of ``np.random.SeedSequence((cfg.seed,
+    1000 + probe))``. (The JAX package folds ``1000 + probe`` into its
+    ``PRNGKey(cfg.seed)``; that draw cannot be reproduced in PyTorch, so a
+    probe's parameters differ from JAX's by design.)"""
+    word = np.random.SeedSequence((cfg.seed, 1000 + probe)).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(word))
+
+
+def _params_copy(mod: Modules) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in mod.encoder.state_dict().items()}
+
+
+def train(
+    cfg: ExperimentConfig,
+    max_steps: Optional[int] = None,
+    log_every: int = 50,
+    checkpoint_dir: Optional[str] = None,
+    log_file: Optional[str] = None,
+    splits: Optional[Dict[str, data_lib.SplitArrays]] = None,
+    resume_from: Optional[str] = None,
+    figure_dir: Optional[str] = None,
+    device: DeviceLike = None,
+    kernels: Kernels = "auto",
+) -> Tuple[Modules, TrainState, Dict[str, float]]:
+    """The training run of ``sot_tpu/training/trainer.py:train``, on
+    ``device`` (default: the GPU; raises if there is none) with the kernel
+    gates ``kernels``. Returns ``(mod, state, best_metrics)``: ``mod.encoder``
+    holds the parameters of the lowest val LSD (a copy taken at that
+    evaluation), not the last ones, as the JAX package returns them;
+    ``state`` holds the last optimizer, schedule, generator and step;
+    ``best_metrics`` is that evaluation's val record.
+
+    The encoder is initialised from a CPU generator seeded with
+    ``cfg.seed`` (the JAX package's Flax init from ``PRNGKey(cfg.seed)``
+    cannot be reproduced, so the parameters differ from JAX's by design).
+
+    As in the JAX package:
+      * the train split is peak-normalised and kept on the device; an
+        epoch is ``n_train // batch_size`` batches in the order
+        ``np.random.default_rng(cfg.seed).permutation``, one draw per
+        epoch, cut to the steps left; one ``train`` record per epoch (the
+        last step's logs, ``step``, ``samples_per_sec``);
+      * evaluation on the val split whenever ``step // eval_every_steps``
+        grows, and at ``max_steps``: full batches through
+        ``make_eval_all``, a trailing partial batch through
+        ``make_eval_step``, the batches weighted equally; one ``val``
+        record each time; a lower LSD checkpoints the state under
+        ``best-lsd``; ``last`` is written at the end;
+      * init-probe restarts (``n_init_probes > 1``, ``probe_steps > 0``,
+        not resumed): probe i trains a fresh encoder (``probe_generator``)
+        with a fresh optimizer for ``probe_steps`` steps in the orders of
+        ``default_rng(cfg.seed + i)``, is evaluated and writes a ``probe``
+        record; the lowest val LSD goes on from step ``probe_steps``;
+      * a resumed run restores the parameters, optimizer, schedule,
+        generator and step, then starts the epoch orders again from
+        ``default_rng(cfg.seed)``'s first epoch (the JAX package restarts
+        its shuffle there too), with the best LSD reset and no probes.
+
+    The dropout stream: every mask comes from ``state.generator``, one
+    ``torch.Generator`` on the device seeded from ``cfg.seed`` (each probe
+    gets its own, seeded the same way), and the checkpoint keeps its state,
+    so two resumes from one checkpoint draw the same masks. The JAX package
+    keys each step's masks by ``fold_in(rng, step)``; doing that here would
+    reseed from the host every step, which a captured CUDA graph of the step
+    cannot do, while a generator's state can be registered with the graph.
+
+    ``log_every`` is accepted for the JAX package's signature and unused, as
+    there. ``figure_dir`` (the figure gallery) is not ported: it raises.
+    """
+    if figure_dir is not None:
+        raise NotImplementedError(
+            "train(figure_dir=...): the figure gallery (training/observability.py) is not "
+            "ported yet (ROADMAP A7)")
+    max_steps = max_steps or cfg.max_steps
+    mod = build_modules(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed),
+                        kernels=kernels)
+    if splits is None:
+        splits = data_lib.dataset_from_config(cfg, device=mod.device)
+
+    state = init_state(mod)
+    start_step = 0
+    if resume_from:
+        start_step = ckpt_lib.restore(resume_from, mod, state)
+
+    eval_step = make_eval_step(mod)
+    eval_all = make_eval_all(mod)
+    bs = cfg.batch_size
+
+    def device_tensor(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=mod.device)
+
+    x_train = device_tensor(data_lib.peak_normalize(splits["train"].x))
+    n_train = x_train.shape[0]
+    steps_per_epoch = n_train // bs
+    if steps_per_epoch == 0:
+        raise ValueError(f"train split has {n_train} samples < batch_size {bs}; reduce "
+                         f"batch_size or enlarge the dataset")
+
+    def run_chunk(st: TrainState, offsets: np.ndarray) -> Dict[str, torch.Tensor]:
+        return train_steps(mod, st, x_train, offsets)
+
+    val_batches = list(data_lib.iterate_batches(splits["val"], bs, drop_last=False))
+    full = [b for b in val_batches if b["x"].shape[0] == bs]
+    partial = [b for b in val_batches if b["x"].shape[0] != bs]
+    if full:
+        val_xs = device_tensor(np.stack([b["x"] for b in full]))
+        val_f0s = device_tensor(np.stack([b["frequency"] for b in full]))
+
+    def run_eval() -> Dict[str, float]:
+        sums: Dict[str, float] = {}
+        count = 0
+        if full:
+            m = eval_all(val_xs, val_f0s)
+            sums = {k: float(v) * len(full) for k, v in m.items()}
+            count += len(full)
+        for b in partial:
+            m = eval_step(device_tensor(b["x"]), device_tensor(b["frequency"]))
+            for k, v in m.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            count += 1
+        return {k: v / max(count, 1) for k, v in sums.items()}
+
+    logger = JsonlLogger(log_file)
+    try:
+        if cfg.n_init_probes > 1 and cfg.probe_steps > 0 and start_step == 0 and not resume_from:
+            probes = []
+            for i in range(cfg.n_init_probes):
+                mod.encoder.reset_parameters(probe_generator(cfg, i))
+                st = init_state(mod)
+                order_rng = np.random.default_rng(cfg.seed + i)
+                remaining = cfg.probe_steps
+                while remaining > 0:
+                    order = order_rng.permutation(steps_per_epoch)[
+                        :min(steps_per_epoch, remaining)]
+                    run_chunk(st, order * bs)
+                    remaining -= len(order)
+                val = run_eval()
+                logger.write({"split": "probe", "probe": i, "step": cfg.probe_steps, **val})
+                probes.append((val.get("log_spectral_distance", float("inf")),
+                               _params_copy(mod), st))
+            _, params, state = min(probes, key=lambda t: t[0])
+            mod.encoder.load_state_dict(params)
+            mod.encoder.dropout.generator = state.generator
+            start_step = cfg.probe_steps
+
+        best_lsd = float("inf")
+        best_metrics: Dict[str, float] = {}
+        best_params = _params_copy(mod)
+        t0 = time.perf_counter()
+        samples_done = 0
+
+        shuffle_rng = np.random.default_rng(cfg.seed)
+        step = start_step
+        eval_bucket = step // cfg.eval_every_steps
+        while step < max_steps:
+            epoch_order = shuffle_rng.permutation(steps_per_epoch)
+            k = min(steps_per_epoch, max_steps - step)
+            logs = run_chunk(state, epoch_order[:k] * bs)
+            step += k
+            samples_done += k * bs
+
+            record = {key: float(v) for key, v in logs.items()}
+            record.update({"step": step,
+                           "samples_per_sec": samples_done / (time.perf_counter() - t0)})
+            logger.write({"split": "train", **record})
+
+            if step // cfg.eval_every_steps > eval_bucket or step >= max_steps:
+                eval_bucket = step // cfg.eval_every_steps
+                val = run_eval()
+                logger.write({"split": "val", "step": step, **val})
+                lsd = val.get("log_spectral_distance", float("inf"))
+                if lsd < best_lsd:
+                    best_lsd = lsd
+                    best_metrics = val
+                    best_params = _params_copy(mod)
+                    if checkpoint_dir:
+                        ckpt_lib.save(checkpoint_dir, mod, state, step, tag="best-lsd")
+
+        if checkpoint_dir:
+            ckpt_lib.save(checkpoint_dir, mod, state, step, tag="last")
+    finally:
+        logger.close()
+    mod.encoder.load_state_dict(best_params)
+    return mod, state, best_metrics

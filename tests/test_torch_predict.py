@@ -107,7 +107,7 @@ def test_serving_entry_without_device_or_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("override", [{"inference_octave_correction": True},
                                       {"inference_comb_correction": True}])
-def test_inference_corrections_are_not_ported_yet(override):
+def test_predict_applies_the_inference_corrections(override):
     """Ported now (ROADMAP A1): ``predict`` rewrites the pitch it returns by
     the correction's clip factors, and the pitch units with it."""
     cfg = get_experiment("SOT-2048", **override)

@@ -278,7 +278,7 @@ def test_gradient_at_attained_and_saturated_caps(monkeypatch):
 
 
 @pytest.mark.parametrize("p,target_constant", [(3.0, True), (2.0, False)])
-def test_unported_plane_paths_raise(p, target_constant):
+def test_plane_paths_p3_and_live_target_match_the_dense_form(p, target_constant):
     """The paths that raised before the banded-plane kernels (B6-B7) were
     ported now run: p = 3 through ``plane``, a live target through
     ``hybrid``, each equal to the dense O(n^2) form (W within 3e-5 of the

@@ -111,3 +111,40 @@ def test_stft_feature_matches():
         got = STFT(**kw)(torch.from_numpy(x), reduce=reduce, log=log).numpy()
         assert got.shape == ref.shape
         np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("size,overlap,window", [(2048, 1 - 256 / 2048, "flattop"),
+                                                 (512, 0.75, None), (8192, 0.75, None)])
+def test_dft_matmul_gate_matches_jax(size, overlap, window, monkeypatch):
+    """``KernelGates.dft_matmul`` against the JAX package under
+    ``SOT_TPU_DFT_MATMUL=1``: |rfft| as one f32 matmul against the real-DFT
+    matrix for n_fft <= 4096 (8192 falls back to the FFT on both sides),
+    values and VJP within this module's bound, through ``stft_magnitude``,
+    the loss transform and the MSS loss."""
+    from sot_tpu.losses import MSSLoss as JaxMSSLoss
+    from sot_tpu_torch.kernel_gates import KernelGates
+    from sot_tpu_torch.losses import MSSLoss
+
+    monkeypatch.setenv("SOT_TPU_DFT_MATMUL", "1")
+    x = _audio(t=8192 if size == 8192 else 4096, seed=5)
+    ct = np.random.default_rng(6).standard_normal(
+        jstft.stft_magnitude(jnp.asarray(x), size=size, overlap=overlap, window=window).shape
+    ).astype(np.float32)
+    y_ref, g_ref = _value_and_vjp_jax(x, ct, size=size, overlap=overlap, window=window)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tstft.stft_magnitude(xt, size=size, overlap=overlap, window=window, dft_matmul=True)
+    (g,) = torch.autograd.grad(y, xt, torch.from_numpy(ct))
+    assert rel_max_err(y.detach().numpy(), y_ref) <= 1e-5
+    assert rel_max_err(g.numpy(), g_ref) <= 1e-5
+    fft = tstft.stft_magnitude(torch.from_numpy(x), size=size, overlap=overlap, window=window)
+    assert torch.equal(fft, y.detach()) == (size > 4096)  # the matmul ran where it applies
+
+    gates = KernelGates(dft_matmul=True)
+    feat = STFT(n_fft=size, hop_length=int(size * (1 - overlap)), window=window, kernels=gates)
+    jfeat = JaxSTFT(n_fft=size, hop_length=int(size * (1 - overlap)), window=window)
+    assert rel_max_err(feat(torch.from_numpy(x)).numpy(), np.asarray(jfeat(jnp.asarray(x)))) <= 1e-5
+    x_hat = _audio(t=x.shape[1], seed=7)
+    got = float(MSSLoss(fft_sizes=MSS_SIZES, mag_weight=1.0, kernels=gates)(
+        torch.from_numpy(x), torch.from_numpy(x_hat)))
+    ref = float(JaxMSSLoss(fft_sizes=MSS_SIZES, mag_weight=1.0)(jnp.asarray(x), jnp.asarray(x_hat)))
+    assert abs(got - ref) <= 1e-5 * abs(ref)

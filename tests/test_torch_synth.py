@@ -109,9 +109,34 @@ def test_sinusoids_above_nyquist_contribute_exactly_zero():
     assert torch.equal(alone, mixed)
 
 
-def test_roll_off_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Sinusoidal(apply_roll_off=True)
+def test_roll_off_matches_jax():
+    """``Sinusoidal(apply_roll_off=True)`` (MSS-LogLin) against JAX's: the
+    rendered audio within the synth's tolerance, and the roll-off alone on
+    JAX's unfiltered render within 1e-5 of its max (``tests/test_torch_fir.py``)."""
+    kw = dict(n_samples=4096, sample_rate=16000, amp_scale_fn=None, freq_scale_fn=None,
+              harmonic=True, apply_roll_off=True)
+    rng = np.random.default_rng(7)
+    amps = rng.uniform(0.05, 1.0, (3, 16, 20)).astype(np.float32)
+    f0 = rng.uniform(60.0, 900.0, (3, 16, 1)).astype(np.float32)
+    jsynth = JaxSinusoidal(**kw)
+    ref = np.asarray(jsynth(jnp.asarray(amps), jnp.asarray(f0)))
+    got = Sinusoidal(**kw)(torch.from_numpy(amps), torch.from_numpy(f0)).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-2)
+    assert corr(got, ref) > 0.9999
+    # the roll-off takes energy off: it is really applied on both sides
+    plain = np.asarray(JaxSinusoidal(**{**kw, "apply_roll_off": False})(
+        jnp.asarray(amps), jnp.asarray(f0)))
+    assert np.abs(plain - ref).max() > 0.1 * np.abs(ref).max()
+    controls = jsynth.get_controls(jnp.asarray(amps), jnp.asarray(f0))
+    raw = np.array(JaxSinusoidal(**{**kw, "apply_roll_off": False}).get_signal(**controls))
+    from sot_tpu.ops import fir as jfir
+    from sot_tpu_torch.ops import fir as tfir
+
+    mag = np.asarray(jfir.slope_frequency_response(jnp.asarray(6.0), 65, 500.0))[0]
+    mag = np.broadcast_to(mag, (3, 65))
+    ref_f = np.asarray(jfir.frequency_filter(jnp.asarray(raw), jnp.asarray(mag)))
+    got_f = tfir.frequency_filter(torch.from_numpy(raw), torch.from_numpy(mag.copy())).numpy()
+    assert np.abs(got_f - ref_f).max() <= 1e-5 * np.abs(ref_f).max()
 
 
 def test_dataset_draws_match_jax():

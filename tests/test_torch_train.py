@@ -291,7 +291,7 @@ def test_data_splits_and_batches_match_jax():
                     np.testing.assert_array_equal(b1[k], b2[k])
 
 
-def test_dataset_from_config_draws_match_jax():
+def test_dataset_from_config_draws_match_jax(tmp_path):
     cfg = _tiny_cfg()
     ts = tdata.dataset_from_config(cfg, device="cpu")
     js = jdata.dataset_from_config(jax_get_experiment("SOT-2048", batch_size=2,
@@ -300,8 +300,18 @@ def test_dataset_from_config_draws_match_jax():
         np.testing.assert_array_equal(ts[k].frequency, js[k].frequency)
         np.testing.assert_array_equal(ts[k].weights, js[k].weights)
         assert ts[k].x.shape == js[k].x.shape
-    with pytest.raises(NotImplementedError, match="evaluation slice"):
-        tdata.dataset_from_config(get_experiment("SOT-2048", dataset_path="d.pth"), device="cpu")
+    # a dataset_path reads the released .pth layout, as the JAX package does
+    path = str(tmp_path / "d.pth")
+    torch.save({f"{k}_{part}": ({"frequency": torch.from_numpy(js[k].frequency),
+                                 "weights": torch.from_numpy(js[k].weights)}
+                                if part == "thetas" else torch.from_numpy(js[k].x))
+                for k in ("train", "val") for part in ("tensors", "thetas")}, path)
+    tp = tdata.dataset_from_config(get_experiment("SOT-2048", dataset_path=path), device="cpu")
+    jp = jdata.dataset_from_config(jax_get_experiment("SOT-2048", dataset_path=path))
+    assert sorted(tp) == sorted(jp) == ["train", "val"]
+    for k in tp:
+        for field in ("x", "frequency", "weights"):
+            np.testing.assert_array_equal(getattr(tp[k], field), getattr(jp[k], field))
 
 
 def test_gradients_map_to_the_flax_tree():
