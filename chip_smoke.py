@@ -3,9 +3,10 @@
 path (predict), the SOT-2048 train step, the SOT-512 family's train step
 and evaluation, SOT-2048 evaluation with the pitch corrections, the
 training run through the CLI (train, resume, evaluate, predict, probes,
-MSS-LogLin's roll-off), and the gated train step (the ``full`` merge route, the
-STFT frontend and the conv kernels: ``KernelGates(w2_merge="full",
-conv=True, stft_frontend=True)``).
+MSS-LogLin's roll-off, --profile), the gated train step (the ``full`` merge
+route, the STFT frontend and the conv kernels: ``KernelGates(
+w2_merge="full", conv=True, stft_frontend=True)``), and the train step and
+the evaluation as CUDA graphs.
 
     python3 chip_smoke.py [--ab-parent PATH/{plane,merge,refgrad}.cu ...]
 
@@ -149,6 +150,33 @@ Phases (any failure raises and the script exits non-zero):
                steps; then, information only, the device busy ms of one
                SOT-2048 step under auto (cuDNN f32 convs) beside CONV_F32
                (kernels 10 and 11 in 3xTF32), profiled in turns
+ 10a. train-graph — the train step as one CUDA graph (trainer.TrainGraph):
+               capturable Adam against the plain Adam on the gradients of 4
+               real steps (information); then on SOT-2048 auto, default and
+               GATED and SOT-512 auto: a graph captured from a fresh model,
+               4 replays against 4 eager steps of another built the same way
+               (the same capturable Adam, the same state) under
+               cudnn.deterministic, parameters, Adam's moments and steps,
+               the generator state and the logs bit-equal, the device step
+               equal to the host step; the same under the default cuDNN
+               with the difference printed; make_eval_all as a graph
+               (trainer.EvalGraph) over the val split's full batches equal to
+               the eager loop in every metric (GATED with the comb
+               correction), kernels 1 and 2 by name in a trace of its
+               replays; host-clock ms per step of windows of 32 steps, graph
+               and eager in turns; a torch.profiler breakdown of one replay
+               and one eager step (busy ms, idle share of the host-clock
+               step), the replay's trace holding the route's kernels by
+               their __global__ names and no other hand-written kernel (a
+               replay runs no Python, so its launch counts are the
+               capture's times the replays: printed, not measured);
+               on SOT-2048 auto, under cudnn.deterministic, 2 steps on one
+               path, a checkpoint, 2 on the other from its restore (eager
+               then graph, graph then eager), each bit-equal to 4 unbroken
+               steps; the graph under the default cuDNN against
+               the graph under cudnn.deterministic, and against the graph of
+               auto + kernels 10-11 in 3xTF32 (the conv gate, information
+               only), in turns
  11. train-run — the training run through the CLI, in this process, at full
                width on the config's 4000-clip dataset (a 2800-clip train
                split: 43 steps an epoch at batch 64): cli train SOT-2048
@@ -170,13 +198,23 @@ Phases (any failure raises and the script exits non-zero):
                its optimizer state); MSS-LogLin 4 train steps and its roll-off
                render on the card against the CPU (the synth's limits), the
                FIR alone within ROLL_OFF_LIMIT; each run's host-clock steps/s
-               and samples_per_sec records beside the card line
+               and samples_per_sec records beside the card line. train()
+               runs every chunk and every full-batch evaluation as graph
+               replays (the launch counts count replays); the first run is
+               repeated with its chunks on the eager loop for the host
+               clock's A/B
+ 11a. profile-cli — cli train --profile: 5 replays of the SOT-2048 auto
+               graph traced after 3 warm-up steps, the table in the JAX
+               package's layout, and kernels 1-5 by name (cqt_tile_kernel,
+               synth_fwd_kernel, synth_bwd_kernel, coupling_fwd_kernel,
+               refgrad_kernel) in the trace of the replays
 
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations, device times torch.profiler; a [profile] line sums the
-device busy ms of each profiled request and step. The last three lines are the per-kernel JSON (each
-kernel's launches from the run whose route it is on), the card (nvidia-smi
-name, power.limit) and {"ok": true, "device": {...}}.
+device busy ms of each profiled request and step, and a [train-graph]
+line of the graph's readings. The last three lines are the per-kernel JSON
+(each kernel's launches from the run whose route it is on), the card
+(nvidia-smi name, power.limit) and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -187,6 +225,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -205,6 +244,7 @@ from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat, params_f
 from sot_tpu_torch.device import set_precision_policy
 from sot_tpu_torch.ops.cqt import cqt_bank
 from sot_tpu_torch.ops.kernels import _build
+from sot_tpu_torch.ops.kernels import launches as launches_lib
 from sot_tpu_torch.kernel_gates import PRESETS, KernelGates
 from sot_tpu_torch.ops.kernels import conv as kconv
 from sot_tpu_torch.ops.kernels import cqt as kcqt
@@ -712,6 +752,8 @@ def serve(cfg, mod):
 
 # device busy ms of each profiled call, by what profile_device was told it is
 BUSY_MS: dict = {}
+# the device kernels' names in each profiled call, keyed as BUSY_MS
+DEVICE_NAMES: dict = {}
 
 
 def profile_device(what: str, fn, top: int = 12):
@@ -735,6 +777,7 @@ def profile_device(what: str, fn, top: int = 12):
         return None
     busy = sum(by_name.values())
     BUSY_MS[what] = busy / 1e3
+    DEVICE_NAMES[what] = set(by_name)
     span = max(b for _, b in spans) - min(a for a, _ in spans)
     print(f"[profile] {what}: {len(spans)} device events, busy {busy / 1e3:.4f} ms "
           f"over a {span / 1e3:.4f} ms span (idle share {1.0 - busy / span:.3f})")
@@ -2358,19 +2401,10 @@ def check_conv(dev, rng):
     return [entries["fwd"], entries["dw"]]
 
 
-def reset_launches() -> None:
-    kcqt.launches = ksynth.launches = ksynth.backward_launches = 0
-    kmerge.launches = krefgrad.launches = kplane.launches = kplane.backward_launches = 0
-    kmerge.grad_launches = kstft.launches = kconv.launches = kconv.dw_launches = 0
-
-
-def read_launches():
-    return {"cqt_project": kcqt.launches, "synth_render": ksynth.launches,
-            "synth_backward": ksynth.backward_launches, "merge_coupling": kmerge.launches,
-            "ref_grad_beta": krefgrad.launches, "sot_plane_forward": kplane.launches,
-            "sot_plane_backward": kplane.backward_launches,
-            "coupling_grads": kmerge.grad_launches, "stft_frontend": kstft.launches,
-            "conv1d_forward": kconv.launches, "conv1d_weight": kconv.dw_launches}
+# every kernel wrapper's launch count (ops/kernels/launches.py); a CUDA
+# graph's replays add its capture's counts once per replay
+reset_launches = launches_lib.reset
+read_launches = launches_lib.read
 
 
 def timed_steps(mod, state, x_all, offsets):
@@ -2621,6 +2655,313 @@ def check_eval_2048(cfg, dev) -> None:
 # [train-run]: the training run through the CLI
 # ---------------------------------------------------------------------------
 
+GRAPH_STEPS = 4          # [train-graph]: replays held against as many eager steps
+GRAPH_WINDOW = 32        # [train-graph]: the steps of each host-clock window
+# the hand-written kernels of SOT-2048's auto route, by their __global__ names
+AUTO_KERNEL_NAMES = ("cqt_tile_kernel", "synth_fwd_kernel", "synth_bwd_kernel",
+                     "coupling_fwd_kernel", "refgrad_kernel")
+# each launch count's kernel by its __global__ name in csrc/
+KERNEL_GLOBALS = {"cqt_project": "cqt_tile_kernel", "synth_render": "synth_fwd_kernel",
+                  "synth_backward": "synth_bwd_kernel", "merge_coupling": "coupling_fwd_kernel",
+                  "ref_grad_beta": "refgrad_kernel", "sot_plane_forward": "plane_fwd_kernel",
+                  "sot_plane_backward": "plane_bwd_kernel",
+                  "coupling_grads": "coupling_grad_kernel",
+                  "stft_frontend": "stft_frontend_fft_kernel",
+                  "conv1d_forward": "conv_fwd_mma_kernel", "conv1d_weight": "conv_dw_mma_kernel"}
+GRAPH_READINGS: dict = {}  # [train-graph]'s readings, printed together at the end
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(flag: bool):
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = flag
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def fresh_state(cfg, dev, kernels):
+    mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
+                        kernels=kernels)
+    return mod, trainer.init_state(mod)
+
+
+def graph_state_diff(mod_a, st_a, mod_b, st_b):
+    """Parameters' max|d|, and the tensors (parameters, Adam's moments and
+    steps, the generator state) that are not bit-equal."""
+    pa, pb = mod_a.encoder.state_dict(), mod_b.encoder.state_dict()
+    diffs = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    for i, ((_, sa), (_, sb)) in enumerate(zip(st_a.optimizer.state.items(),
+                                              st_b.optimizer.state.items())):
+        diffs += [f"adam/{i}/{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+    if not torch.equal(st_a.generator.get_state(), st_b.generator.get_state()):
+        diffs.append("generator")
+    return max(float((pa[k] - pb[k]).abs().max()) for k in pa), diffs
+
+
+def adam_capturable_check(cfg, dev, x_all) -> None:
+    """[train-graph] capturable Adam (the card's, which a graph can replay)
+    against the plain (non-capturable) Adam on identical gradients: the gradients
+    of GRAPH_STEPS real SOT-2048 steps, applied from the same parameters by
+    each; information only (they order the bias correction differently)."""
+    mod, st = fresh_state(cfg, dev, "auto")
+    start = [p.detach().clone() for p in mod.encoder.parameters()]
+    grads = []
+    for i in range(GRAPH_STEPS):
+        trainer.train_steps(mod, st, x_all, [i * BATCH])
+        grads.append([p.grad.detach().clone() for p in mod.encoder.parameters()])
+    moved = {}
+    for capturable in (True, False):
+        params = [torch.nn.Parameter(p.clone()) for p in start]
+        opt = torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=cfg.weight_decay, capturable=capturable)
+        for g in grads:
+            for p, gi in zip(params, g):
+                p.grad = gi.clone()
+            opt.step()
+        moved[capturable] = [p.detach() for p in params]
+    d = max(float((a - b).abs().max()) for a, b in zip(moved[True], moved[False]))
+    update = max(float((a - s).abs().max()) for a, s in zip(moved[True], start))
+    n = sum(int((a != b).sum()) for a, b in zip(moved[True], moved[False]))
+    total = sum(a.numel() for a in start)
+    print(f"[train-graph] capturable Adam against the plain Adam on the gradients of "
+          f"{GRAPH_STEPS} SOT-2048 steps: parameters max|d| {d:.3e} against a largest update "
+          f"of {update:.3e}; {n} of {total} parameters differ")
+
+
+def kernels_in_trace(what) -> set:
+    """The launch counts' names (KERNEL_GLOBALS) whose kernel the profile
+    ``what`` of profile_device saw on the device, by its __global__ name."""
+    names = DEVICE_NAMES.get(what, set())
+    return {k for k, g in KERNEL_GLOBALS.items() if any(re.search(rf"\b{g}\b", n) for n in names)}
+
+
+def graph_against_eager(cfg, dev, x_all, kernels, label, deterministic):
+    """GRAPH_STEPS eager steps, and as many replays of a graph captured from
+    a second model built the same way; under ``deterministic`` (cuDNN's
+    deterministic algorithms) the two must be bit-equal. Returns ((mod,
+    state) eager, (mod, state, graph))."""
+    offsets = np.arange(GRAPH_STEPS) * BATCH
+    tag = "cudnn.deterministic" if deterministic else "default cuDNN"
+    with cudnn_deterministic(deterministic):
+        mod_e, st_e = fresh_state(cfg, dev, kernels)
+        logs_e = trainer.train_steps(mod_e, st_e, x_all, offsets)
+        mod_g, st_g = fresh_state(cfg, dev, kernels)
+        t0 = time.perf_counter()
+        graph = st_g.graph = trainer.TrainGraph(mod_g, st_g, x_all)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        reset_launches()
+        logs_g = graph(offsets)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    d, diffs = graph_state_diff(mod_e, st_e, mod_g, st_g)
+    same_logs = all(float(logs_e[k]) == float(logs_g[k]) for k in logs_e)
+    print(f"[train-graph] {label} ({tag}): warm-up and capture {capture_s:.2f} s; "
+          f"{GRAPH_STEPS} replays against {GRAPH_STEPS} eager steps of the same capturable "
+          f"Adam from the same state: parameters max|d| {d:.3e}, {len(diffs)} tensors not "
+          f"bit-equal {diffs[:6]} (parameters, Adam's moments and steps, the generator "
+          f"state); logs equal {same_logs}; device step {int(graph.step)}, host step "
+          f"{st_g.step}")
+    require(int(graph.step) == st_g.step == GRAPH_STEPS, f"{label}: device and host steps")
+    if deterministic:
+        print(f"[train-graph] {label}: launch counts of the {GRAPH_STEPS} replays (the "
+              f"capture's times the replays, not measured): {launches}")
+        require(not diffs and same_logs,
+                f"{label}: the replays differ from the eager steps under cudnn.deterministic")
+    return (mod_e, st_e), (mod_g, st_g, graph)
+
+
+def resume_across_paths(cfg, dev, x_all, kernels, unbroken, label) -> None:
+    """[train-graph] under cudnn.deterministic: half the GRAPH_STEPS on one
+    path (the eager loop or the graph), a checkpoint, a restore into a model
+    and state built from another seed, the other half on the other path;
+    bit-equal to ``unbroken``'s GRAPH_STEPS unbroken steps."""
+    import shutil
+    import tempfile
+
+    offsets = np.arange(GRAPH_STEPS) * BATCH
+    half = GRAPH_STEPS // 2
+    paths = {"eager": trainer.train_steps, "graph": trainer.train_steps_graph}
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_", dir=os.path.join(ROOT, "runs"))
+    try:
+        with cudnn_deterministic(True):
+            for first, second in (("eager", "graph"), ("graph", "eager")):
+                mod, st = fresh_state(cfg, dev, kernels)
+                paths[first](mod, st, x_all, offsets[:half])
+                path = ckpt_lib.save(tmp, mod, st, st.step, tag=first)
+                mod_r, st_r = fresh_state(cfg.replace(seed=cfg.seed + 1), dev, kernels)
+                require(ckpt_lib.restore(path, mod_r, st_r) == half, "restored step")
+                paths[second](mod_r, st_r, x_all, offsets[half:])
+                d, diffs = graph_state_diff(*unbroken, mod_r, st_r)
+                print(f"[train-graph] {label} (cudnn.deterministic): {half} steps on the "
+                      f"{first} path, a checkpoint, {GRAPH_STEPS - half} on the {second} path "
+                      f"from its restore, against {GRAPH_STEPS} unbroken steps: parameters "
+                      f"max|d| {d:.3e}, {len(diffs)} tensors not bit-equal {diffs[:6]}")
+                require(not diffs, f"{label}: a resume from the {first} path onto the "
+                                   f"{second} path differs from the unbroken steps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def host_ms_per_step(run, offsets) -> float:
+    """Host-clock ms per step of ``run(offsets)``, from a synchronised start
+    to a synchronised end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(offsets)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(offsets)
+
+
+def in_turns(label, runs, offsets):
+    """Host-clock ms per step of a GRAPH_WINDOW window of each of two runs,
+    in turns a, b, b, a; returns each run's mean."""
+    (a, run_a), (b, run_b) = runs
+    ms = {a: [], b: []}
+    for name, run in ((a, run_a), (b, run_b), (b, run_b), (a, run_a)):
+        ms[name].append(host_ms_per_step(run, offsets))
+    print(f"[train-graph] {label}: host-clock ms per step over windows of {len(offsets)} "
+          f"steps, in turns: " + "; ".join(f"{n} {', '.join(f'{v:.3f}' for v in vs)}"
+                                             for n, vs in ms.items()) + f" | {card_line()}")
+    return {n: statistics.mean(vs) for n, vs in ms.items()}
+
+
+def eval_graph_check(mod, dev, val, label) -> None:
+    """[train-graph] ``make_eval_all`` on the graph against the eager loop
+    over the val split's full batches: every metric equal."""
+    full = [b for b in data_lib.iterate_batches(val, mod.config.batch_size, drop_last=False)
+            if b["x"].shape[0] == mod.config.batch_size]
+    xs = torch.from_numpy(np.stack([b["x"] for b in full])).to(dev)
+    f0s = torch.from_numpy(np.stack([b["frequency"] for b in full])).to(dev)
+    graph = trainer.EvalGraph(mod, xs, f0s)
+    reset_launches()
+    got = {k: float(v) for k, v in graph().items()}
+    launches = read_launches()
+    what = f"eval_all's replays over {len(full)} {label} val batches"
+    profile_device(what, graph, top=0)
+    seen = kernels_in_trace(what)
+    step = trainer.make_eval_step(mod)
+    ms = [step(x, f0) for x, f0 in zip(xs, f0s)]
+    want = {k: float(torch.mean(torch.stack([m[k] for m in ms]))) for k in ms[0]}
+    diffs = sorted(k for k in want if got.get(k) != want[k])
+    print(f"[train-graph] {label}: eval_all over {len(full)} val batches as one graph "
+          f"replayed per batch against the eager loop: {len(diffs)} of {len(want)} metrics "
+          f"differ {diffs}; LSD {got['log_spectral_distance']:.6f}, RPA "
+          f"{got['raw_pitch_accuracy']:.6f}; launch counts (the capture's times the "
+          f"replays, not measured) {launches}; hand-written kernels by name in the trace "
+          f"of the replays {sorted(seen)}")
+    require(not diffs and set(got) == set(want), f"{label}: the eval graph differs")
+    require({"cqt_project", "synth_render"} <= seen,
+            f"{label}: kernels 1 and 2 are not in the trace of the eval replays")
+
+
+def check_train_graph(dev, x_all, routes) -> None:
+    """[train-graph]: the train step as a CUDA graph on each route in
+    ``routes`` ((label, cfg, kernels, kernels of the route)): GRAPH_STEPS
+    replays against as many eager steps, bit-equal under
+    cudnn.deterministic and compared under the default; the eval graph
+    against the eager loop; host-clock windows of the graph and the eager
+    step in turns; a profile of one replay and of one eager step (busy ms,
+    idle share); on SOT-2048 auto, resumes across the two paths (bit-equal
+    under cudnn.deterministic), the graph under the default cuDNN against
+    the graph under cudnn.deterministic and against the graph of the conv
+    gate (CONV_F32), in turns; before all, capturable
+    Adam against the plain Adam on identical gradients."""
+    t_phase = time.perf_counter()
+    cfg = get_experiment("SOT-2048")
+    val = data_lib.dataset_from_config(cfg, device=dev)["val"]
+    adam_capturable_check(cfg, dev, x_all)
+    offsets = (np.arange(GRAPH_WINDOW) + GRAPH_STEPS) * BATCH
+    require(offsets[-1] + BATCH <= len(x_all), "train split too small for the graph windows")
+    for label, cfg_r, kernels, on in routes:
+        det_eager, det = graph_against_eager(cfg_r, dev, x_all, kernels, label, True)
+        (mod_e, st_e), (mod_g, st_g, graph) = graph_against_eager(
+            cfg_r, dev, x_all, kernels, label, False)
+        eval_graph_check(mod_g, dev, val, label)
+        ms = in_turns(f"{label}, graph against eager (default cuDNN)", (
+            ("eager", lambda o: trainer.train_steps(mod_e, st_e, x_all, o)), ("graph", graph)),
+            offsets)
+        busy = {
+            "graph": profile_device(f"one replayed {label} step", lambda: graph(offsets[:1]),
+                                    top=30),
+            "eager": profile_device(f"one eager {label} step",
+                                    lambda: trainer.train_steps(mod_e, st_e, x_all,
+                                                                offsets[:1]), top=0)}
+        idle = {k: None if busy[k] is None else 1.0 - busy[k] / ms[k] for k in ms}
+        seen = kernels_in_trace(f"one replayed {label} step")
+        print(f"[train-graph] {label}: hand-written kernels by name in the trace of one "
+              f"replay: {sorted(seen)}")
+        require(seen == set(on), f"{label}: the trace of a replay holds the route's kernels "
+                                 f"{sorted(set(on) - seen)} missing, off-route kernels "
+                                 f"{sorted(seen - set(on))}")
+        GRAPH_READINGS[label] = {"host_ms_per_step": ms, "busy_ms": busy, "idle_share": idle}
+        print(f"[train-graph] {label}: host-clock ms per step graph {ms['graph']:.3f} / eager "
+              f"{ms['eager']:.3f}; device busy ms of one step graph "
+              + " / eager ".join("not measured" if busy[k] is None else f"{busy[k]:.4f}"
+                                 for k in ("graph", "eager"))
+              + "; idle share of the host-clock step graph "
+              + " / eager ".join("not measured" if idle[k] is None else f"{idle[k]:.3f}"
+                                 for k in ("graph", "eager")) + f" | {card_line()}")
+        if label == "SOT-2048 auto":
+            resume_across_paths(cfg_r, dev, x_all, kernels, det_eager, label)
+            det_graph = det[2]
+            det_ms = in_turns(f"{label}, the graph under the default cuDNN against "
+                              f"cudnn.deterministic", (("default", graph),
+                                                       ("deterministic", det_graph)), offsets)
+            GRAPH_READINGS["SOT-2048 auto cudnn"] = det_ms
+            # the conv gate's host-clock A/B, which needed the graph
+            mod_c, st_c = fresh_state(cfg_r, dev, CONV_F32)
+            conv_graph = st_c.graph = trainer.TrainGraph(mod_c, st_c, x_all)
+            GRAPH_READINGS["SOT-2048 conv gate"] = in_turns(
+                f"{label}, the conv gate on the graph (information only): auto against auto + "
+                f"kernels 10-11 in 3xTF32", (("auto", graph), ("conv f32", conv_graph)), offsets)
+            del mod_c, st_c, conv_graph
+        del mod_e, st_e, mod_g, st_g, graph, det, det_eager
+    print(f"[train-graph] the phase took {time.perf_counter() - t_phase:.1f} s of host clock")
+
+
+def check_profile_cli(dev) -> None:
+    """[profile-cli]: ``cli train --profile`` (5 replays of the SOT-2048
+    auto step's graph traced after 3 warm-up steps, then a 1-step run): its
+    table in JAX's layout, and the hand-written kernels of the route by name
+    from inside the replays (or "not measured" when the trace holds no
+    device events)."""
+    import shutil
+    import tempfile
+
+    from sot_tpu_torch.training import profiling
+
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_", dir=os.path.join(ROOT, "runs"))
+    try:
+        out = os.path.join(tmp, "run")
+        text, _, _ = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+                              "--profile", "--steps", "1", "--eval-every", "1", "--out", out]
+                             + device_flags(dev))
+        table = text[text.index("# device trace ->"):].splitlines()
+        table = [line for line in table if line.startswith("#") or "ms/step" in line]
+        for line in table:
+            print(f"[profile-cli] {line}")
+        if "device time not measured" in text:
+            print("[profile-cli] the trace of the replays holds no device events: not measured")
+            return
+        names = [name for name, _ in profiling.summarize_trace(os.path.join(out, "trace"),
+                                                               top=10 ** 6, steps=5)]
+        found = sorted(k for k in profiling.handwritten_kernels()
+                       if any(re.search(rf"\b{k}\b", n) for n in names))
+        print(f"[profile-cli] hand-written kernels in the trace of the replays: {found}")
+        require(table and table[1] == "# by device category:"
+                and any("kernel: csrc (hand-written)" in line for line in table),
+                "cli train --profile: no table of the hand-written kernels")
+        require(set(AUTO_KERNEL_NAMES) <= set(found),
+                "cli train --profile: a kernel of the auto route is missing from the trace")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 TRAIN_RUN_EPOCHS = 3     # the run: 3 epochs, an evaluation after each
 ROLL_OFF_LIMIT = 1e-5    # the roll-off FIR, card against CPU on one signal: max|d| / max
 
@@ -2677,18 +3018,23 @@ class SaveSpy:
         return path
 
 
-def run_cli(argv, chunks=False):
-    """``cli.main(argv)`` in this process, with ``train_steps`` and
-    ``checkpoint.save`` spied on; returns (stdout, ChunkSpy, SaveSpy)."""
+def run_cli(argv, eager=False):
+    """``cli.main(argv)`` in this process, with the chunks of ``train()``
+    (``train_steps_graph`` on the card, ``train_steps`` on the CPU) and
+    ``checkpoint.save`` spied on; with ``eager`` the card's chunks run the
+    eager ``train_steps`` instead of the graph (the A/B). Returns (stdout,
+    the ChunkSpy that ran, SaveSpy)."""
     import io
 
-    chunk_spy, save_spy = ChunkSpy(trainer.train_steps), SaveSpy(ckpt_lib.save)
+    graph_spy = ChunkSpy(trainer.train_steps if eager else trainer.train_steps_graph)
+    eager_spy, save_spy = ChunkSpy(trainer.train_steps), SaveSpy(ckpt_lib.save)
     buf = io.StringIO()
-    with mock.patch.object(trainer, "train_steps", chunk_spy), \
+    with mock.patch.object(trainer, "train_steps", eager_spy), \
+            mock.patch.object(trainer, "train_steps_graph", graph_spy), \
             mock.patch.object(ckpt_lib, "save", save_spy), contextlib.redirect_stdout(buf):
         rc = cli_lib.main(argv)
     require(rc == 0, f"cli {argv[0]} returned {rc}")
-    return buf.getvalue(), chunk_spy, save_spy
+    return buf.getvalue(), (graph_spy if graph_spy.calls else eager_spy), save_spy
 
 
 def tree_diff(a, b, path="") -> list:
@@ -2797,6 +3143,15 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
         print(f"[train-run] host clock: {steps_per_sec(chunks):.2f} train steps/s over the "
               f"{len(chunks.calls)} epochs (each ending in a synchronisation); samples_per_sec "
               f"records {[round(r['samples_per_sec'], 1) for r in train_recs]} | {card}")
+        if dev.type == "cuda":
+            # the A/B of the host clock: the same run, its chunks on the eager loop
+            _, chunks_e, _ = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+                                      "--steps", str(steps), "--eval-every", str(epoch),
+                                      "--out", os.path.join(tmp, "run-eager")] + flags,
+                                     eager=True)
+            print(f"[train-run] host clock, the same cli train on the graph against its chunks "
+                  f"on the eager loop: {steps_per_sec(chunks):.2f} against "
+                  f"{steps_per_sec(chunks_e):.2f} train steps/s | {card}")
 
         # the checkpoint round trip: `last` into fresh modules and state
         last = os.path.join(ckpts, "last")
@@ -3064,7 +3419,15 @@ def main() -> int:
             f"the gated SOT-2048 steps launched kernels 10 / 11 {conv_launches} times, "
             f"expected {4 * TRAIN_STEPS} / {2 * TRAIN_STEPS}")
     conv_gate_ab(cfg, dev, x_all)
+    check_train_graph(dev, x_all, (
+        ("SOT-2048 auto", cfg, "auto", common + ("merge_coupling", "ref_grad_beta")),
+        ("SOT-2048 default", cfg, "default",
+         common + ("sot_plane_forward", "sot_plane_backward")),
+        ("SOT-2048 gated", cfg.replace(eval_comb_correction=True), GATED,
+         common + ("merge_coupling",) + gated),
+        ("SOT-512 auto", cfg512, "auto", common + ("merge_coupling", "sot_plane_backward"))))
     check_train_run(dev, x_all=x_all)
+    check_profile_cli(dev)
     # each kernel's count from the run whose main path it is on (kernel 4 at
     # [1024, 257]: SOT-512 auto; kernels 6 and 7 at each loss shape: SOT-2048
     # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258];
@@ -3088,6 +3451,7 @@ def main() -> int:
               f"over the {TRAIN_STEPS} {run} train steps | {card}")
 
     print(f"[profile] device busy ms: {json.dumps(BUSY_MS)} | {card}")
+    print(f"[train-graph] readings: {json.dumps(GRAPH_READINGS)} | {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ holds ``train_config.json`` (the resolved config), ``log.jsonl``,
 a run checkpoint, whose run's ``train_config.json`` is used, or a
 ``torch.save`` of the encoder's ``state_dict`` (for weights trained by the
 JAX package, build one with ``convert.params_from_flax``). ``train
---figures`` and ``--profile`` are not ported (ROADMAP A7).
+--profile`` first traces a few warmed-up train steps (on the GPU, replays
+of the step's CUDA graph) into ``<out>/trace`` and prints the device-time
+table (``training/profiling.py``); ``train --figures`` is not ported
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -154,6 +157,35 @@ def _model(cfg, args, device):
     return mod
 
 
+def _profile_steps(cfg, trace_dir: str, device, kernels, n_steps: int = 5) -> None:
+    """A trace of ``n_steps`` train steps on one batch after 3 warm-up steps
+    (the JAX package's ``_profile_steps``) and its device-time table: on the
+    GPU replays of the step's graph (``train_steps_graph``, captured at the
+    first warm-up step), on the CPU the eager steps."""
+    import torch
+
+    from sot_tpu_torch import data as data_lib
+    from sot_tpu_torch.training import trainer
+    from sot_tpu_torch.training.profiling import print_trace_summary, trace
+
+    mod = trainer.build_modules(cfg, device=device,
+                                generator=torch.Generator().manual_seed(cfg.seed),
+                                kernels=kernels)
+    state = trainer.init_state(mod)
+    steps = trainer.train_steps_graph if mod.device.type == "cuda" else trainer.train_steps
+    signals, _, _ = data_lib.generate_sinusoid_dataset(
+        seed=0, size=cfg.batch_size, n_samples=cfg.n_samples, render_batch=cfg.batch_size,
+        device=device)
+    x = torch.as_tensor(data_lib.peak_normalize(signals), dtype=torch.float32, device=device)
+    steps(mod, state, x, [0] * 3)
+    if mod.device.type == "cuda":
+        torch.cuda.synchronize()
+    with trace(trace_dir):
+        steps(mod, state, x, [0] * n_steps)
+    print(f"# device trace -> {trace_dir} (top ops, ms/step):")
+    print_trace_summary(trace_dir, steps=n_steps, top=15)
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     from sot_tpu_torch import data as data_lib
     from sot_tpu_torch.kernel_gates import resolve_gates
@@ -161,8 +193,6 @@ def cmd_train(args: argparse.Namespace) -> int:
 
     if args.figures:
         raise NotImplementedError(f"train --figures (the figure gallery) {NOT_PORTED}")
-    if args.profile:
-        raise NotImplementedError(f"train --profile (the profiler summary) {NOT_PORTED}")
     overrides = {}
     if args.config:
         file_overrides = _load_config_files(args.config)
@@ -188,6 +218,9 @@ def cmd_train(args: argparse.Namespace) -> int:
     out = args.out or f"runs/{cfg.name}-{cfg.seed}"
     os.makedirs(out, exist_ok=True)
     _save_resolved_config(cfg, out)
+
+    if args.profile:
+        _profile_steps(cfg, os.path.join(out, "trace"), device, args.kernels)
 
     splits = data_lib.dataset_from_config(cfg, device=device)
     mod, _, best = train(cfg, max_steps=args.steps,
@@ -371,7 +404,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the port's kernel-gate preset (kernel_gates.PRESETS): 'auto' the "
                         "merge-coupling SOT routes, 'default' the banded plane")
     t.add_argument("--figures", action="store_true", help=f"the figure gallery {NOT_PORTED}")
-    t.add_argument("--profile", action="store_true", help=f"a profile of a few steps {NOT_PORTED}")
+    t.add_argument("--profile", action="store_true",
+                   help="first trace 5 warmed-up train steps into <out>/trace and print the "
+                        "device-time table (on the GPU, replays of the step's CUDA graph)")
     t.add_argument("--final-eval", action="store_true",
                    help="after training, evaluate the best-LSD params on the test split "
                         "(plain, octave- and comb-corrected) and write "

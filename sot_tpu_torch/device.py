@@ -7,11 +7,14 @@ they raise instead of quietly running on the CPU.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Dict, Hashable, Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+_CONSTANTS: Dict[Hashable, torch.Tensor] = {}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -40,3 +43,30 @@ def set_precision_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+
+
+def device_constant(array: np.ndarray, device: DeviceLike,
+                    key: Optional[Hashable] = None,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``array`` as a tensor on ``device`` (cast to ``dtype`` if given, for a
+    type numpy lacks such as bfloat16), made at the first call and kept for
+    good: later calls with the same values (or the same ``key``, for a large
+    table whose bytes are costly to hash) get the same tensor.
+
+    A host-to-device copy cannot be captured into a CUDA graph, and a
+    captured step reads its constants at fixed addresses, so every host
+    constant of the train and eval steps comes through here: made once
+    (by the warm-up before a capture), never copied again and never freed.
+    The values are the array's, bit for bit; callers must not write to it.
+    """
+    dev = torch.device(device)
+    a: Any = np.ascontiguousarray(array)
+    full_key = (("key", key) if key is not None
+                else ("array", a.dtype.str, a.shape, a.tobytes()), str(dtype), str(dev))
+    t = _CONSTANTS.get(full_key)
+    if t is None:
+        # a normal tensor even when first asked for under inference_mode,
+        # so autograd can save it later
+        with torch.inference_mode(False):
+            t = _CONSTANTS[full_key] = torch.from_numpy(a.copy()).to(dtype=dtype).to(dev)
+    return t

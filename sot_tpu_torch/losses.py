@@ -21,6 +21,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.kernel_gates import Kernels, resolve_gates
 from sot_tpu_torch.ops.numerics import safe_divide, safe_log
 from sot_tpu_torch.ops.stft import stft_magnitude
@@ -41,7 +42,11 @@ def mean_difference(target: torch.Tensor, value: torch.Tensor, loss_type: str = 
 
 
 def _positions(pos, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(pos, dtype=torch.float32, device=like.device)
+    """Positions as f32 on ``like``'s device; host positions through
+    ``device_constant`` (copied to the device once)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(dtype=torch.float32, device=like.device)
+    return device_constant(np.asarray(pos, np.float32), like.device)
 
 
 @dataclasses.dataclass(frozen=True)

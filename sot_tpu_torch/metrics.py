@@ -19,8 +19,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.losses import Wasserstein1D, mean_difference
 from sot_tpu_torch.ops.numerics import safe_log, safe_log10
 from sot_tpu_torch.ops.stft import stft_magnitude
@@ -192,7 +194,7 @@ def comb_factors(x: torch.Tensor, pitch_hz: torch.Tensor, sample_rate: float = 1
     f0 = _median_frames(pitch_hz)
     nyquist = sample_rate / 2.0
     global_peak = spec.amax(dim=-1)
-    r = torch.tensor(ratios, dtype=torch.float32, device=spec.device)
+    r = device_constant(np.asarray(ratios, np.float32), spec.device)
     ks = torch.arange(1, n_harmonics + 1, dtype=torch.float32, device=spec.device)
     fc = f0[:, None] * r[None, :]  # [b, R]
     comb = fc[..., None] * ks  # [b, R, K]

@@ -30,10 +30,12 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.ops.kernels.conv import conv1d_same
 from sot_tpu_torch.ops.numerics import exp_sigmoid
 
@@ -206,8 +208,8 @@ class PESTOEncoder(nn.Module):
         product."""
         if y.dtype == torch.float32:
             return F.leaky_relu(y, negative_slope=self.a_lrelu)
-        return torch.where(y >= 0, y, y * torch.tensor(self.a_lrelu, dtype=y.dtype,
-                                                       device=y.device))
+        slope = device_constant(np.float64(self.a_lrelu), y.device, dtype=y.dtype)
+        return torch.where(y >= 0, y, y * slope)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if x.ndim == 2:

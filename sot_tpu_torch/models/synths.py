@@ -18,6 +18,7 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.ops.fir import frequency_filter, slope_frequency_response
 from sot_tpu_torch.ops.kernels.synth import synth_render
 from sot_tpu_torch.ops.numerics import get_fn_by_name
@@ -60,8 +61,9 @@ class Sinusoidal:
                               self.n_samples, self.sample_rate)
         if self.apply_roll_off:
             # -6 dB/octave above 500 Hz (the MSS-LogLin experiment)
-            filter_mag = slope_frequency_response(6.0, n_freqs=65, f_ref=500.0)[0]
-            filter_mag = filter_mag.to(signal.device).expand(signal.shape[0], -1)
+            filter_mag = device_constant(
+                slope_frequency_response(6.0, n_freqs=65, f_ref=500.0)[0].numpy(), signal.device)
+            filter_mag = filter_mag.expand(signal.shape[0], -1)
             signal = frequency_filter(signal, filter_mag)
         return signal
 

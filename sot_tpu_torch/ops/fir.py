@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.ops.windows import hann_window
 
 
@@ -50,8 +51,8 @@ def apply_window_to_impulse_response(impulse_response: torch.Tensor, window_size
         win_zp = np.roll(win, n // 2)
         order = (np.arange(n) - n // 2) % n
 
-    out = ir * torch.from_numpy(win_zp).to(ir.device)[None, None, :]
-    out = out[..., torch.from_numpy(order).to(ir.device)]
+    out = ir * device_constant(win_zp, ir.device)[None, None, :]
+    out = out[..., device_constant(order, ir.device)]
     return out[:, 0, :] if batch_only else out
 
 
@@ -99,8 +100,8 @@ def _cross_fade_frames(frames: torch.Tensor, frames_prev: torch.Tensor,
     fade_out_full = np.concatenate([np.zeros((1, n), np.float32),
                                     np.broadcast_to(fade_out, (n_frames - 1, n))])[None]
     dev = frames.device
-    return (frames * torch.from_numpy(fade_in_full).to(dev)
-            + frames_prev * torch.from_numpy(fade_out_full).to(dev))
+    return (frames * device_constant(fade_in_full, dev)
+            + frames_prev * device_constant(fade_out_full, dev))
 
 
 def fft_convolve(audio: torch.Tensor, impulse_response: torch.Tensor, padding: str = "same",

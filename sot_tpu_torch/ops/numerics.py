@@ -54,7 +54,9 @@ def logb(x: Number, base: float = 2.0) -> torch.Tensor:
 def hz_to_midi(frequencies: Number) -> torch.Tensor:
     """Hz -> MIDI; 0 Hz maps to MIDI 0."""
     frequencies = _f32(frequencies)
-    notes = 12.0 * (logb(frequencies, 2.0) - logb(440.0, 2.0).to(frequencies.device)) + 69.0
+    # the 0-dim CPU constant enters a device op as a scalar: no copy to the
+    # device (which a CUDA graph could not capture)
+    notes = 12.0 * (logb(frequencies, 2.0) - logb(440.0, 2.0)) + 69.0
     return torch.where(frequencies <= 0.0, torch.zeros_like(notes), notes)
 
 

@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.ops.windows import hann_window
 
 
@@ -46,7 +47,7 @@ def upsample_with_windows(inputs: torch.Tensor, n_timesteps: int,
             f"n_timesteps ({n_timesteps}) must be divisible by n_intervals ({n_intervals})")
 
     hop_size = n_timesteps // n_intervals
-    window = torch.from_numpy(hann_window(2 * hop_size)).to(inputs.device)
+    window = device_constant(hann_window(2 * hop_size), inputs.device)
 
     windowed = inputs[:, :, None, :] * window[None, None, :, None]
     first = windowed[:, :, :hop_size, :]
@@ -82,9 +83,9 @@ def _interp_linear(inputs: torch.Tensor, n_timesteps: int,
     """1D linear interpolation along axis 1."""
     lo, hi, frac = linear_taps(inputs.shape[1], n_timesteps, align_corners)
     dev = inputs.device
-    frac_t = torch.from_numpy(frac).to(dev)[None, :, None]
-    x_lo = inputs[:, torch.from_numpy(lo).to(dev), :]
-    x_hi = inputs[:, torch.from_numpy(hi).to(dev), :]
+    frac_t = device_constant(frac, dev)[None, :, None]
+    x_lo = inputs[:, device_constant(lo, dev), :]
+    x_hi = inputs[:, device_constant(hi, dev), :]
     return x_lo + frac_t * (x_hi - x_lo)
 
 

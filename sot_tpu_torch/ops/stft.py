@@ -26,6 +26,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.ops.kernels.stft import frontend_applicable, stft_frontend_projection
 from sot_tpu_torch.ops.numerics import pad_for_stft_length
 from sot_tpu_torch.ops.windows import get_window, hann_window
@@ -85,7 +86,8 @@ def _dft_matmul_magnitude(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
     """|rfft(frames)| as one f32 matmul against ``_dft_matrix`` (full f32
     under the port's precision policy, TF32 off, as the JAX package asks
     for HIGHEST precision)."""
-    proj = torch.matmul(frames, torch.from_numpy(_dft_matrix(n_fft)).to(frames.device))
+    basis = device_constant(_dft_matrix(n_fft), frames.device, key=("dft_matrix", n_fft))
+    proj = torch.matmul(frames, basis)
     n_bins = n_fft // 2 + 1
     return _complex_abs(proj[..., :n_bins], proj[..., n_bins:])
 
@@ -131,7 +133,8 @@ def stft_magnitude(
         n_bins = size // 2 + 1
         mag = _complex_abs(proj[..., :n_bins], proj[..., n_bins:])
     else:
-        win = torch.as_tensor(win, dtype=torch.float32, device=audio.device)
+        win = (win.to(dtype=torch.float32, device=audio.device) if isinstance(win, torch.Tensor)
+               else device_constant(np.asarray(win, np.float32), audio.device))
         frames = frame_signal(audio, size, hop_length, pad_end=pad_end)
         if dft_matmul and size <= 4096:
             mag = _dft_matmul_magnitude(frames * win, size)

@@ -2,6 +2,15 @@
 encoder's parameters, the optimizer and its schedule, the dropout
 generator and the step, as one ``torch.save`` file at ``<dir>/<tag>``.
 
+The optimizer's state is Adam's ``state_dict``: on the GPU a capturable
+Adam's, whose step counts are device tensors (held on the CPU in the file,
+as every tensor). ``restore`` loads it into the optimizer as that optimizer
+is built, so one file resumes on either device and on either path, the
+eager loop or the CUDA graph of ``trainer.TrainGraph``: each Adam step
+count goes where the live optimizer keeps it (the device when capturable,
+the CPU when not), the live ``capturable`` flag stays, and a tensor
+learning rate takes the file's value in place, at its address.
+
 Tags as in the JAX package: ``best-lsd`` (top-1 on the lowest val LSD) and
 ``last``, each overwritten in place. A run keeps them under
 ``<run>/checkpoints/<tag>``, so the run's ``train_config.json`` is found two
@@ -77,13 +86,35 @@ def encoder_state(path: str) -> Dict[str, torch.Tensor]:
     return data["encoder"] if _is_payload(data) else data
 
 
+def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
+    """``optimizer.load_state_dict(saved)`` that keeps the optimizer as it is
+    built: its ``capturable`` flags, each Adam step count on the device a
+    capturable Adam keeps it on (else the CPU), and a tensor ``lr`` in place."""
+    live = [(g.get("capturable", False), g["lr"]) for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, (capturable, lr) in zip(optimizer.param_groups, live):
+        group["capturable"] = capturable
+        if isinstance(lr, torch.Tensor):
+            with torch.no_grad():
+                lr.copy_(torch.as_tensor(group["lr"], dtype=lr.dtype))
+            group["lr"] = lr
+        for p in group["params"]:
+            s = optimizer.state.get(p, {})
+            if isinstance(s.get("step"), torch.Tensor):
+                s["step"] = s["step"].to(device=p.device if capturable else "cpu", dtype=torch.float32)
+
+
 def restore(path: str, mod: Any, state: Any) -> int:
     """Load a checkpoint into ``mod.encoder`` and ``state`` (optimizer,
-    schedule, generator and step, on ``mod.device``); returns the step."""
+    schedule, generator and step, on ``mod.device``; the parameters and the
+    generator in place); returns the step. A CUDA graph captured for
+    ``state`` is dropped (the optimizer's state tensors are new), so the next
+    chunk captures again."""
     data = load(path)
     mod.encoder.load_state_dict(data["encoder"])
-    state.optimizer.load_state_dict(data["optimizer"])
+    load_optimizer_state(state.optimizer, data["optimizer"])
     state.scheduler.load_state_dict(data["scheduler"])
     state.generator.set_state(data["generator"])
     state.step = int(data["step"])
+    state.graph = None
     return state.step

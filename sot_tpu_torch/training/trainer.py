@@ -9,12 +9,19 @@
     spectra, the optional odd-ratio prior
   * ``make_optimizer`` / ``init_state`` / ``train_step`` / ``train_steps`` —
     Adam with coupled L2 (torch.optim.Adam's ``weight_decay``, what the JAX
-    package builds from ``optax.add_decayed_weights`` + ``scale_by_adam``),
-    the warmup/cosine schedule as a ``LambdaLR``, and loops over a
-    device-resident dataset
-  * ``make_eval_step`` / ``make_eval_all`` / ``evaluate`` — the metric
-    suite (``metrics.py``) and the loss terms of a batch in eval mode, their
-    mean over batches, on the pitch as the config's eval corrections leave it
+    package builds from ``optax.add_decayed_weights`` + ``scale_by_adam``;
+    capturable on the GPU), the warmup/cosine schedule as a ``LambdaLR``,
+    and the eager loop over a device-resident dataset
+  * ``temperature_tensor`` / ``prior_scale_tensor`` / ``lr_tensor`` /
+    ``train_step_indexed`` / ``TrainGraph`` / ``train_steps_graph`` — the
+    schedules from a device step tensor, the step that reads its batch by
+    a device offset, and that step captured into a CUDA graph and replayed
+    once per batch (the JAX package's scanned epoch, ``make_train_steps_scan``)
+  * ``make_eval_step`` / ``EvalGraph`` / ``make_eval_all`` / ``evaluate`` —
+    the metric suite (``metrics.py``) and the loss terms of a batch in eval
+    mode, their mean over batches (on the GPU one graph replayed per batch,
+    the JAX package's scanned evaluation), on the pitch as the config's eval
+    corrections leave it
   * ``apply_octave_correction`` / ``apply_comb_correction`` — the
     unsupervised pitch corrections with the config's thresholds
   * ``predict`` — the deployment inference entry
@@ -45,11 +52,12 @@ from sot_tpu_torch import data as data_lib
 from sot_tpu_torch import losses as losses_lib
 from sot_tpu_torch import metrics as metrics_lib
 from sot_tpu_torch.configs import ExperimentConfig
-from sot_tpu_torch.device import DeviceLike, resolve_device
+from sot_tpu_torch.device import DeviceLike, device_constant, resolve_device
 from sot_tpu_torch.features import CQT, STFT, Identity
 from sot_tpu_torch.kernel_gates import KernelGates, Kernels, resolve_gates
 from sot_tpu_torch.models.encoder import PESTOEncoder, predict_pitch
 from sot_tpu_torch.models.synths import Sinusoidal
+from sot_tpu_torch.ops.kernels import launches as launches_lib
 from sot_tpu_torch.ops.numerics import get_cqt_n_bins, hz_to_unit, unit_to_hz
 from sot_tpu_torch.training import checkpoint as ckpt_lib
 from sot_tpu_torch.training.logging import JsonlLogger
@@ -158,6 +166,54 @@ def prior_scale_at(cfg: ExperimentConfig, step: int) -> Optional[float]:
     return float(step >= cfg.odd_ratio_prior_start)
 
 
+# The schedules' tensor forms: the step is an integer tensor on the device
+# (the CUDA graph's step counter), and each value is computed in float32 with
+# the JAX package's operations in its order, as it computes them from its
+# traced step. ``temperature_at``, ``prior_scale_at`` and ``lr_multiplier``
+# stay the eager path's host forms.
+
+
+def temperature_tensor(cfg: ExperimentConfig, step: torch.Tensor) -> Union[float, torch.Tensor]:
+    """``temperature_at`` from a step tensor (``sot_tpu/training/trainer.py:
+    temperature_at``); without a schedule the config's float, as there."""
+    if cfg.temperature_schedule is None:
+        return cfg.temperature
+    t0, t1, n = cfg.temperature_schedule
+    log_t1 = np.log(np.float32(t1))
+    half = np.float32(0.5) * (np.log(np.float32(t0)) - log_t1)
+    frac = torch.clamp(step.to(torch.float32) / float(n), 0.0, 1.0)
+    return torch.exp(float(log_t1) + float(half) * (1.0 + torch.cos(math.pi * frac)))
+
+
+def prior_scale_tensor(cfg: ExperimentConfig, step: torch.Tensor) -> Optional[torch.Tensor]:
+    """``prior_scale_at`` from a step tensor: float32 0/1, or None."""
+    if cfg.odd_ratio_prior_weight <= 0.0 or cfg.odd_ratio_prior_start <= 0:
+        return None
+    return (step >= cfg.odd_ratio_prior_start).to(torch.float32)
+
+
+def lr_tensor(cfg: ExperimentConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate of update ``step`` (a step tensor) as float32, as
+    the optax schedule of the JAX package's ``make_optimizer`` computes it:
+    ``linear_schedule(0, lr, warmup)`` joined at the warmup boundary to
+    ``constant_schedule(lr)`` or ``cosine_decay_schedule(lr, max_steps -
+    warmup)``; the constant lr without either."""
+    if cfg.lr_decay not in ("constant", "cosine"):
+        raise ValueError(f"Unknown lr_decay {cfg.lr_decay!r}")
+    lr, warmup = cfg.learning_rate, cfg.lr_warmup_steps
+    const = torch.full((), lr, dtype=torch.float32, device=step.device)
+    if cfg.lr_decay == "constant":
+        after = const
+    else:
+        decay_steps = float(max(cfg.max_steps - warmup, 1))
+        count = torch.clamp((step - warmup).to(torch.float32), max=decay_steps)
+        after = lr * (0.5 * (1.0 + torch.cos(math.pi * count / decay_steps)))
+    if warmup == 0:
+        return after
+    frac = 1.0 - torch.clamp(step, 0, warmup).to(torch.float32) / float(warmup)
+    return torch.where(step < warmup, (0.0 - lr) * frac + lr, after)
+
+
 def forward(mod: Modules, x: torch.Tensor, train: bool = False,
             temperature: Optional[float] = None) -> Dict[str, torch.Tensor]:
     """Autoencoder forward. x: [batch, n_samples] on ``mod.device``.
@@ -260,9 +316,17 @@ def make_optimizer(cfg: ExperimentConfig, params
                    ) -> Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]:
     """Adam with coupled L2 (the decay is added to the gradient before the
     moments, not decoupled as in AdamW) and the lr schedule; update k
-    (from 0) runs at ``learning_rate * lr_multiplier(cfg, k)``."""
+    (from 0) runs at ``learning_rate * lr_multiplier(cfg, k)``.
+
+    On the GPU the Adam is ``capturable`` (its step counts live on the
+    device, so a CUDA graph can replay the update; ``TrainGraph`` hands it
+    its lr as a device tensor); the CPU keeps the plain Adam, which is all
+    the CPU accepts. The two order the bias correction differently, a
+    rounding-level difference (PERF.md §6)."""
+    params = list(params)
+    capturable = bool(params) and params[0].device.type == "cuda"
     opt = torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                           weight_decay=cfg.weight_decay)
+                           weight_decay=cfg.weight_decay, capturable=capturable)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda s: lr_multiplier(cfg, s))
     return opt, sched
 
@@ -273,6 +337,9 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LambdaLR
     generator: torch.Generator  # dropout masks, on the model's device
     step: int = 0
+    # the CUDA graph of this state's train step (``train_steps_graph``),
+    # captured at its first chunk; a checkpoint restore drops it
+    graph: Optional["TrainGraph"] = dataclasses.field(default=None, repr=False)
 
 
 def init_state(mod: Modules, seed: Optional[int] = None) -> TrainState:
@@ -311,13 +378,174 @@ def train_step(mod: Modules, state: TrainState, x: torch.Tensor) -> Dict[str, to
 def train_steps(mod: Modules, state: TrainState, x_all: torch.Tensor,
                 offsets: Sequence[int]) -> Dict[str, torch.Tensor]:
     """One ``train_step`` per batch offset into the device-resident dataset
-    ``x_all`` [n, n_samples] (batch = ``cfg.batch_size``); the last step's logs."""
+    ``x_all`` [n, n_samples] (batch = ``cfg.batch_size``); the last step's
+    logs. The eager loop, the JAX package's per-step ``make_train_step``:
+    ``train()`` runs it on the CPU, ``train_steps_graph`` on the GPU."""
     bs = mod.config.batch_size
     logs: Dict[str, torch.Tensor] = {}
     for lo in offsets:
         lo = int(lo)
         logs = train_step(mod, state, x_all[lo:lo + bs])
     return logs
+
+
+def train_step_indexed(mod: Modules, state: TrainState, x_all: torch.Tensor,
+                       offsets: torch.Tensor, index: torch.Tensor, step: torch.Tensor,
+                       lr: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``train_step`` with everything that changes from step to step read
+    from tensors on the dataset's device, the body ``TrainGraph`` captures
+    (the JAX package's ``make_train_step_from_dataset``): the batch is the
+    ``batch_size`` rows of ``x_all`` from ``offsets[index]``, the
+    temperature, prior gate and lr are the tensor forms at ``step``; ``step``
+    and ``index`` advance by one in place. ``lr`` receives the step's
+    learning rate: capturable Adam reads it as a tensor, the CPU's Adam as a
+    float (the schedule's own stays in the optimizer outside this call)."""
+    cfg = mod.config
+    rows = (offsets.index_select(0, index.view(1))
+            + device_constant(np.arange(cfg.batch_size), x_all.device))
+    x = x_all.index_select(0, rows)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, (logs, _) = compute_loss(mod, x, train=True, temperature=temperature_tensor(cfg, step),
+                                   prior_scale=prior_scale_tensor(cfg, step))
+    loss.backward()
+    params = [p for p in mod.encoder.parameters() if p.grad is not None]
+    logs = {k: v.detach() for k, v in logs.items()}
+    logs["grad_norm"] = global_norm([p.grad for p in params]).detach()
+    lr.copy_(lr_tensor(cfg, step))
+    groups = state.optimizer.param_groups
+    scheduled = [g["lr"] for g in groups]
+    for g in groups:
+        g["lr"] = lr if lr.device.type == "cuda" else float(lr)
+    try:
+        state.optimizer.step()
+    finally:
+        for g, value in zip(groups, scheduled):
+            g["lr"] = value
+    step += 1
+    index += 1
+    return logs
+
+
+# eager runs of a step on a side stream before its capture: they build the
+# kernels, fill the host caches, make Adam's state and pick cuDNN's algorithms
+GRAPH_WARMUP = 3
+
+
+def _snapshot(mod: Modules, state: TrainState) -> Dict[str, Any]:
+    """Copies of what a train step changes: parameters, Adam's state, the
+    dropout generator."""
+    return {"params": {k: v.detach().clone() for k, v in mod.encoder.state_dict().items()},
+            "adam": {p: {k: v.clone() for k, v in s.items() if isinstance(v, torch.Tensor)}
+                     for p, s in state.optimizer.state.items()},
+            "generator": state.generator.get_state()}
+
+
+def _restore(mod: Modules, state: TrainState, snap: Dict[str, Any]) -> None:
+    """Put a ``_snapshot`` back in place (the tensors keep their addresses);
+    Adam state made since (the first update's lazy init) goes back to its
+    initial zeros."""
+    with torch.no_grad():
+        for k, v in mod.encoder.state_dict().items():
+            v.copy_(snap["params"][k])
+        for p, s in state.optimizer.state.items():
+            saved = snap["adam"].get(p)
+            for k, v in s.items():
+                if isinstance(v, torch.Tensor):
+                    v.zero_() if saved is None else v.copy_(saved[k])
+    state.generator.set_state(snap["generator"])
+
+
+class TrainGraph:
+    """One train step (``train_step_indexed``) captured into a CUDA graph for
+    ``state`` on the dataset ``x_all``, the counterpart of the JAX package's
+    ``make_train_steps_scan`` (an epoch as one XLA program).
+
+    Built by warming the step up on a side stream (``GRAPH_WARMUP``
+    updates), putting parameters, Adam's state and the generator back as
+    they were, then capturing one step. The dropout generator is registered
+    with the graph, so replayed masks continue its eager stream. The
+    gradients are allocated by the captured backward, in the graph's memory
+    pool. A call runs a chunk: the chunk's offsets go to the device once (an
+    epoch's at most: a longer chunk goes in pieces), the device step is set
+    from ``state.step``, the graph is replayed once per offset, then
+    ``state.step`` and the host schedule advance as many updates. It returns
+    the last step's logs, the graph's own output tensors (overwritten by the
+    next replay). Each kernel wrapper's launch count advances by its
+    launches in the capture times the replays (``ops/kernels/launches.py``).
+    A capture that fails raises.
+    """
+
+    def __init__(self, mod: Modules, state: TrainState, x_all: torch.Tensor):
+        if mod.device.type != "cuda" or x_all.device.type != "cuda":
+            raise ValueError(f"TrainGraph: a CUDA graph needs the model and the dataset on "
+                             f"the GPU (model on {mod.device}, dataset on {x_all.device})")
+        dev = x_all.device
+        self.mod, self.state, self.x_all = mod, state, x_all
+        self.capacity = x_all.shape[0] // mod.config.batch_size
+        if self.capacity == 0:
+            raise ValueError(f"TrainGraph: {x_all.shape[0]} samples < batch_size")
+        self.offsets = torch.zeros(self.capacity, dtype=torch.int64, device=dev)
+        self.index = torch.zeros((), dtype=torch.int64, device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+
+        snap = _snapshot(mod, state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                self._prime()
+                self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        _restore(mod, state, snap)
+
+        before = launches_lib.read()
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.generator)
+        with torch.cuda.graph(self.graph):
+            self.logs = self._body()
+        self.launches = launches_lib.delta(before, launches_lib.read())
+        launches_lib.write(before)
+        state.generator.set_state(snap["generator"])
+
+    def _prime(self) -> None:
+        self.index.zero_()
+        self.step.fill_(self.state.step)
+
+    def _body(self) -> Dict[str, torch.Tensor]:
+        return train_step_indexed(self.mod, self.state, self.x_all, self.offsets, self.index,
+                                  self.step, self.lr)
+
+    def __call__(self, offsets: Sequence[int]) -> Dict[str, torch.Tensor]:
+        offsets = np.asarray(offsets, np.int64)
+        bs = self.mod.config.batch_size
+        if len(offsets) == 0 or offsets.min() < 0 or offsets.max() + bs > self.x_all.shape[0]:
+            raise ValueError(f"TrainGraph: {len(offsets)} offsets, each in "
+                             f"[0, {self.x_all.shape[0] - bs}]")
+        # an epoch's offsets fit the buffer; a longer chunk goes in pieces
+        for lo in range(0, len(offsets), self.capacity):
+            piece = offsets[lo:lo + self.capacity]
+            k = len(piece)
+            self.offsets[:k].copy_(torch.from_numpy(piece))
+            self._prime()
+            for _ in range(k):
+                self.graph.replay()
+            launches_lib.add(self.launches, k)
+            self.state.step += k
+            for _ in range(k):
+                self.state.scheduler.step()
+        return self.logs
+
+
+def train_steps_graph(mod: Modules, state: TrainState, x_all: torch.Tensor,
+                      offsets: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """``train_steps`` as graph replays: ``state.graph`` (captured at the
+    first call, again for another model or dataset) replayed once per
+    offset; the last step's logs."""
+    graph = state.graph
+    if graph is None or graph.mod is not mod or graph.x_all is not x_all:
+        graph = state.graph = TrainGraph(mod, state, x_all)
+    return graph(offsets)
 
 
 def correction_kwargs(mod: Modules) -> Dict[str, Any]:
@@ -383,12 +611,63 @@ def make_eval_step(mod: Modules) -> Callable[[torch.Tensor, torch.Tensor], Dict[
     return eval_step
 
 
-def make_eval_all(mod: Modules) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
+class EvalGraph:
+    """``_eval_metrics`` of one full batch captured into a CUDA graph under
+    ``no_grad`` and replayed over the stacked batches ``xs``, ``f0s`` (the
+    JAX package's scanned ``make_eval_all``): a device counter picks each
+    replay's batch and the row its metrics are written to; a call returns
+    each metric's mean over the batches, taken on the device as the eager
+    ``make_eval_all`` takes it. Warmed up on a side stream first (eval
+    changes no state); launch counts advance per replay as in ``TrainGraph``.
+    """
+
+    def __init__(self, mod: Modules, xs: torch.Tensor, f0s: torch.Tensor):
+        if xs.device.type != "cuda" or f0s.device != xs.device:
+            raise ValueError(f"EvalGraph: the batches must be on the GPU ({xs.device})")
+        self.mod, self.xs, self.f0s = mod, xs, f0s
+        self.index = torch.zeros((), dtype=torch.int64, device=xs.device)
+        side = torch.cuda.Stream(xs.device)
+        side.wait_stream(torch.cuda.current_stream(xs.device))
+        with torch.cuda.stream(side), torch.no_grad():
+            for _ in range(GRAPH_WARMUP):
+                self.keys = list(_eval_metrics(mod, xs[0], f0s[0]))
+        torch.cuda.current_stream(xs.device).wait_stream(side)
+        self.rows = torch.zeros((xs.shape[0], len(self.keys)), dtype=torch.float32,
+                                device=xs.device)
+        before = launches_lib.read()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(self.graph):
+            pick = self.index.view(1)
+            m = _eval_metrics(mod, xs.index_select(0, pick)[0], f0s.index_select(0, pick)[0])
+            self.rows.index_copy_(0, pick, torch.stack([m[k] for k in self.keys])[None])
+            self.index += 1
+        self.launches = launches_lib.delta(before, launches_lib.read())
+        launches_lib.write(before)
+
+    def __call__(self) -> Dict[str, torch.Tensor]:
+        n = self.xs.shape[0]
+        self.index.zero_()
+        for _ in range(n):
+            self.graph.replay()
+        launches_lib.add(self.launches, n)
+        return {k: torch.mean(self.rows[:, j].contiguous()) for j, k in enumerate(self.keys)}
+
+
+def make_eval_all(mod: Modules
+                  ) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """(xs [n_batches, batch, n_samples], f0s [n_batches, batch, 1]) -> the
-    mean of each metric over the batches (equal batch weights)."""
+    mean of each metric over the batches (equal batch weights). On the GPU
+    one ``EvalGraph``, captured at the first call and again for other
+    batches; on the CPU an eager loop of the eval step."""
     eval_step = make_eval_step(mod)
+    captured: Dict[str, EvalGraph] = {}
 
     def eval_all(xs: torch.Tensor, f0s: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if mod.device.type == "cuda":
+            g = captured.get("graph")
+            if g is None or g.xs is not xs or g.f0s is not f0s:
+                g = captured["graph"] = EvalGraph(mod, xs, f0s)
+            return g()
         ms = [eval_step(x, f0) for x, f0 in zip(xs, f0s)]
         return {k: torch.mean(torch.stack([m[k] for m in ms])) for k in ms[0]}
 
@@ -498,13 +777,19 @@ def train(
         ``default_rng(cfg.seed)``'s first epoch (the JAX package restarts
         its shuffle there too), with the best LSD reset and no probes.
 
+    On the GPU, as the JAX package runs an epoch as one scanned program,
+    every chunk of steps is replays of the state's ``TrainGraph`` (captured
+    at its first chunk; each probe captures its own) and every evaluation's
+    full batches replays of one ``EvalGraph``; a capture that fails raises.
+    On the CPU the chunks run the eager ``train_steps``.
+
     The dropout stream: every mask comes from ``state.generator``, one
     ``torch.Generator`` on the device seeded from ``cfg.seed`` (each probe
-    gets its own, seeded the same way), and the checkpoint keeps its state,
-    so two resumes from one checkpoint draw the same masks. The JAX package
-    keys each step's masks by ``fold_in(rng, step)``; doing that here would
-    reseed from the host every step, which a captured CUDA graph of the step
-    cannot do, while a generator's state can be registered with the graph.
+    gets its own, seeded the same way), registered with the state's graph,
+    and the checkpoint keeps its state, so two resumes from one checkpoint
+    draw the same masks on either path. The JAX package keys each step's
+    masks by ``fold_in(rng, step)``; doing that here would reseed from the
+    host every step, which a captured graph cannot do.
 
     ``log_every`` is accepted for the JAX package's signature and unused, as
     there. ``figure_dir`` (the figure gallery) is not ported: it raises.
@@ -539,7 +824,8 @@ def train(
                          f"batch_size or enlarge the dataset")
 
     def run_chunk(st: TrainState, offsets: np.ndarray) -> Dict[str, torch.Tensor]:
-        return train_steps(mod, st, x_train, offsets)
+        steps = train_steps_graph if mod.device.type == "cuda" else train_steps
+        return steps(mod, st, x_train, offsets)
 
     val_batches = list(data_lib.iterate_batches(splits["val"], bs, drop_last=False))
     full = [b for b in val_batches if b["x"].shape[0] == bs]
@@ -581,6 +867,7 @@ def train(
                 probes.append((val.get("log_spectral_distance", float("inf")),
                                _params_copy(mod), st))
             _, params, state = min(probes, key=lambda t: t[0])
+            del probes, st  # the other probes' states and their graphs
             mod.encoder.load_state_dict(params)
             mod.encoder.dropout.generator = state.generator
             start_step = cfg.probe_steps

@@ -191,7 +191,7 @@ def test_generate_data_writes_jax_keys_and_draws(tmp_path, capsys):
         np.testing.assert_array_equal(a["weights"], b["weights"])
 
 
-@pytest.mark.parametrize("flag", ["--figures", "--profile"])
+@pytest.mark.parametrize("flag", ["--figures"])
 def test_unported_train_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         cli.main(["train", flag, "--out", str(tmp_path)] + TINY + CPU)
