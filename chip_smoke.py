@@ -5,8 +5,8 @@ and evaluation, SOT-2048 evaluation with the pitch corrections, the
 training run through the CLI (train, resume, evaluate, predict, probes,
 MSS-LogLin's roll-off, --profile), the gated train step (the ``full`` merge
 route, the STFT frontend and the conv kernels: ``KernelGates(
-w2_merge="full", conv=True, stft_frontend=True)``), and the train step and
-the evaluation as CUDA graphs.
+w2_merge="full", conv=True, stft_frontend=True)``), the train step and
+the evaluation as CUDA graphs, and the served model as a CUDA graph.
 
     python3 chip_smoke.py [--ab-parent PATH/{plane,merge,refgrad}.cu ...]
 
@@ -30,10 +30,31 @@ Phases (any failure raises and the script exits non-zero):
                max|d| <= 1e-3 * max, share of frames within 50 cents of the
                true f0 equal to within 1/1024)
   5. serving — 4 requests of 64 clips made by the port's data module on the
-               card, each answered by predict; launch counts of both kernels
-               over exactly these requests; then a window of 32 more
+               card, each answered by predict (on the card a capture, then
+               replays of the request shape's CUDA graph); their launch
+               counts printed (the warm-up's eager runs, then the capture's
+               times the replays: not measured); then a window of 32 more
                requests whose rate is all clips over the summed request
-               time; a torch.profiler breakdown of one more request
+               time; a torch.profiler breakdown of one more request, whose
+               trace must name kernels 1 and 2 and no other hand-written
+               kernel
+ 5a. serve-graph — predict as one CUDA graph per (shape, correction)
+               (trainer.PredictGraph) with the SOT-2048 golden weights, on
+               auto, auto + inference_comb_correction and GATED +
+               inference_octave_correction: 4 requests bit-equal to the
+               eager body (trainer._predict_body) under cudnn.deterministic
+               on pitch_hz, pitch_unit, weights, x_hat and frequency_logits;
+               two requests back to back in buffers of their own, each
+               equal to its own eager answer; the SOT-512 golden's weights
+               loaded in place and read by the next replay of the same
+               graph; under the default cuDNN the replays' largest
+               difference from the body (printed), the hand-written kernels
+               by name in the trace of one replay (1 and 2; 1, 2, 9 and 10
+               gated) and no other, windows of 32 requests graph and eager
+               body in turns (graph, eager, eager, graph: latency median,
+               min, max, clips/s, the idle share of a request); then cli
+               predict --ckpt on a reference Lightning file of the golden
+               weights equal to predict with them
   6. kernels — the train-step kernels against their plain versions on the
                card: the merge coupling (kernel 4; S per-row rel err <=
                COUPLING_LIMIT, 1e-5) and the reference-convention beta
@@ -211,8 +232,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations, device times torch.profiler; a [profile] line sums the
-device busy ms of each profiled request and step, and a [train-graph]
-line of the graph's readings. The last three lines are the per-kernel JSON
+device busy ms of each profiled request and step, a [train-graph] line
+the step graph's readings and a [serve-graph] line the served graph's. The last three lines are the per-kernel JSON
 (each kernel's launches from the run whose route it is on), the card
 (nvidia-smi name, power.limit) and {"ok": true, "device": {...}}.
 """
@@ -708,13 +729,14 @@ def make_requests(cfg, dev, n: int, seed: int):
     return np.split(data_lib.peak_normalize(signals).astype(np.float32), n)
 
 
-def answer(mod, requests):
-    """Answer each request with predict; host-clock ms of each, ending in a
+def answer(mod, requests, fn=predict):
+    """Answer each request with ``fn(mod, x)`` (predict: on the card a
+    replay of the request shape's graph); host-clock ms of each, ending in a
     device synchronisation."""
     latencies, outs = [], []
     for x in requests:
         t0 = time.perf_counter()
-        outs.append(predict(mod, x))
+        outs.append(fn(mod, x))
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
     return latencies, outs
@@ -736,8 +758,8 @@ def serve(cfg, mod):
                 "non-finite serving outputs")
     print(f"[serving] {N_REQUESTS} requests x {BATCH} clips: latency ms "
           f"{', '.join(f'{v:.3f}' for v in latencies)}")
-    print(f"[serving] launches during the requests: {launches}")
-    require(all(v > 0 for v in launches.values()), "a kernel was not launched")
+    print(f"[serving] launch counts during the requests (the first request's warm-up "
+          f"runs, then the capture's times the replays: not measured): {launches}")
 
     # The rate counts every timed request, slow ones included.
     window, _ = answer(mod, make_requests(cfg, mod.device, WINDOW_REQUESTS, seed=2000))
@@ -2962,6 +2984,187 @@ def check_profile_cli(dev) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SERVE_REPLAYS = 4        # [serve-graph]: replays held against the eager body
+SERVE_WINDOW = 32        # [serve-graph]: requests of each host-clock window
+SERVE_KEYS = ("pitch_hz", "pitch_unit", "weights", "x_hat", "frequency_logits")
+SERVE_READINGS: dict = {}  # [serve-graph]'s readings, printed together at the end
+
+
+def eager_body(mod, x):
+    """The served body outside any graph (``trainer._predict_body``), the
+    request copied to the card first, as the eager ``predict`` did."""
+    with torch.inference_mode():
+        return trainer._predict_body(mod, torch.as_tensor(x, device=mod.device),
+                                     mod.config.inference_octave_correction)
+
+
+def serve_diff(got, want) -> float:
+    return max(float((got[k] - want[k]).abs().max()) for k in SERVE_KEYS)
+
+
+def serve_equal(got, want) -> bool:
+    return all(torch.equal(got[k], want[k]) for k in SERVE_KEYS)
+
+
+def window_stats(latencies) -> dict:
+    return {"median_ms": statistics.median(latencies), "min_ms": min(latencies),
+            "max_ms": max(latencies),
+            "clips_per_s": len(latencies) * BATCH / sum(latencies) * 1e3}
+
+
+def serve_graph_route(cfg, dev, label, kernels, on) -> None:
+    """[serve-graph] one route: under cudnn.deterministic, SERVE_REPLAYS
+    requests answered by predict (a capture, then replays) bit-equal to the
+    eager body on each output; two requests back to back not aliased, each
+    equal to its own eager answer; the SOT-512 golden's weights loaded in
+    place and read by the next replay of the same graph. Under the default
+    cuDNN the replays' largest difference from the body (printed), the
+    hand-written kernels by name in the trace of one replay (exactly
+    ``on``), and host-clock windows of SERVE_WINDOW requests, graph and
+    eager body in turns, with the idle share of a request."""
+    requests = make_requests(cfg, dev, SERVE_REPLAYS + 2, seed=5000)
+    key = ((BATCH, cfg.n_samples), cfg.inference_octave_correction)
+    with cudnn_deterministic(True):
+        mod = build_modules(cfg, device=dev, kernels=kernels)
+        load_golden_weights(mod)
+        t0 = time.perf_counter()
+        reset_launches()
+        got = [predict(mod, x) for x in requests[:SERVE_REPLAYS]]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        unequal = [i for i, (g, x) in enumerate(zip(got, requests))
+                   if not serve_equal(g, eager_body(mod, x))]
+        a, b = (predict(mod, x) for x in requests[SERVE_REPLAYS:])
+        shared = [k for k in SERVE_KEYS if a[k].data_ptr() == b[k].data_ptr()]
+        own = (serve_equal(a, eager_body(mod, requests[SERVE_REPLAYS]))
+               and serve_equal(b, eager_body(mod, requests[SERVE_REPLAYS + 1])))
+        graph = mod.serve_graphs[key]
+        load_golden_weights(mod, GOLDEN_512)
+        reloaded = predict(mod, requests[0])
+        same_graph = mod.serve_graphs[key] is graph and len(mod.serve_graphs) == 1
+        reload_equal = serve_equal(reloaded, eager_body(mod, requests[0]))
+        moved = serve_diff(reloaded, got[0])
+    print(f"[serve-graph] {label} (cudnn.deterministic): {SERVE_REPLAYS} requests x {BATCH} "
+          f"clips (a capture, then replays; {first_s:.2f} s with the warm-up): "
+          f"{SERVE_REPLAYS - len(unequal)} of {SERVE_REPLAYS} bit-equal to the eager body on "
+          f"{', '.join(SERVE_KEYS)}; launch counts (the warm-up's eager runs, then the "
+          f"capture's times the replays: not measured) {launches}")
+    print(f"[serve-graph] {label}: two requests back to back share {shared or 'no'} output "
+          f"buffers, each equal to its own eager answer after both: {own}; after an in-place "
+          f"load of the SOT-512 golden's weights the same graph ({same_graph}) answers "
+          f"equal to the eager body with them: {reload_equal} (outputs moved by up to "
+          f"{moved:.3e})")
+    require(not unequal, f"{label}: replays {unequal} differ from the eager body under "
+                         f"cudnn.deterministic")
+    require(not shared and own and not torch.equal(a["pitch_hz"], b["pitch_hz"]),
+            f"{label}: the outputs of two requests are aliased or overwritten")
+    require(same_graph and reload_equal and moved > 0.0,
+            f"{label}: the next replay did not read the weights loaded in place")
+    del mod, got, a, b, graph, reloaded
+
+    mod = build_modules(cfg, device=dev, kernels=kernels)
+    load_golden_weights(mod)
+    diffs = [serve_diff(predict(mod, x), eager_body(mod, x)) for x in requests[:SERVE_REPLAYS]]
+    print(f"[serve-graph] {label} (default cuDNN): replays against the eager body, largest "
+          f"max|d| over the outputs per request: {', '.join(f'{d:.3e}' for d in diffs)}")
+    what = f"one served {label} request (a replay)"
+    busy_graph = profile_device(what, lambda: predict(mod, requests[0]), top=12)
+    seen = kernels_in_trace(what)
+    print(f"[serve-graph] {label}: hand-written kernels by name in the trace of one replay: "
+          f"{sorted(seen)}")
+    require(seen == set(on), f"{label}: the trace of a replay holds the route's kernels "
+                             f"{sorted(set(on) - seen)} missing, off-route kernels "
+                             f"{sorted(seen - set(on))}")
+    busy_eager = profile_device(f"one eager {label} request", lambda: eager_body(mod, requests[0]),
+                                top=0)
+
+    window = make_requests(cfg, dev, SERVE_WINDOW, seed=6000)
+    runs = {"graph": predict, "eager": eager_body}
+    ms = {"graph": [], "eager": []}
+    for name in ("graph", "eager", "eager", "graph"):
+        latencies, _ = answer(mod, window, runs[name])
+        ms[name] += latencies
+    stats = {k: window_stats(v) for k, v in ms.items()}
+    busy = {"graph": busy_graph, "eager": busy_eager}
+    idle = {k: None if busy[k] is None else 1.0 - busy[k] / stats[k]["median_ms"] for k in busy}
+    SERVE_READINGS[label] = {"latency": stats, "busy_ms": busy, "idle_share": idle,
+                             "windows_ms": ms}
+    for name in ("graph", "eager"):
+        st = stats[name]
+        print(f"[serve-graph] {label} {name}: 2 windows of {SERVE_WINDOW} requests x {BATCH} "
+              f"clips in turns (graph, eager, eager, graph): latency ms median "
+              f"{st['median_ms']:.4f}, min {st['min_ms']:.4f}, max {st['max_ms']:.4f}; "
+              f"{st['clips_per_s']:.1f} clips/s over the summed time; device busy ms of one "
+              f"request {'not measured' if busy[name] is None else f'{busy[name]:.4f}'}, idle "
+              f"share of the median request "
+              f"{'not measured' if idle[name] is None else f'{idle[name]:.3f}'} | {card_line()}")
+
+
+def reference_ckpt_of(mod, path: str) -> None:
+    """``mod``'s encoder weights as a reference (Lightning) checkpoint:
+    ``{"state_dict": {"encoder." + <reference key>: tensor}}``, the
+    frequency taps as the reference's [1, 1, n] Conv1d weight."""
+    from sot_tpu_torch.models.import_torch import reference_key
+
+    sd = {}
+    for k, v in mod.encoder.state_dict().items():
+        v = v.detach().cpu()
+        sd["encoder." + reference_key(k)] = v.reshape(1, 1, -1) if k.startswith("frequency.") else v
+    torch.save({"state_dict": sd, "epoch": 0, "global_step": 0}, path)
+
+
+def cli_predict_reference(cfg, dev) -> None:
+    """[serve-graph] ``cli predict --ckpt`` on a reference Lightning file
+    made from the golden weights: pitch_hz, pitch_unit and weights equal to
+    predict with the golden weights (cudnn.deterministic on both)."""
+    import shutil
+    import tempfile
+
+    with np.load(GOLDEN) as z:
+        x = z["x"]
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=os.path.join(ROOT, "runs"))
+    try:
+        with cudnn_deterministic(True):
+            mod = build_modules(cfg, device=dev)
+            load_golden_weights(mod)
+            want = predict(mod, x)
+            ckpt = os.path.join(tmp, "reference.ckpt")
+            reference_ckpt_of(mod, ckpt)
+            np.save(os.path.join(tmp, "clips.npy"), x)
+            out = os.path.join(tmp, "preds.npz")
+            run_cli(["predict", "--ckpt", ckpt, "--input", os.path.join(tmp, "clips.npy"),
+                     "--output", out, "--no-normalize"] + device_flags(dev))
+        with np.load(out) as z:
+            got = {k: z[k] for k in z.files}
+        equal = {k: bool(np.array_equal(got[k], want[k].cpu().numpy().reshape(got[k].shape)))
+                 for k in ("pitch_hz", "pitch_unit", "weights")}
+        print(f"[serve-graph] cli predict --ckpt <reference Lightning file of the golden "
+              f"weights> on the golden's {len(x)} clips: equal to predict with the golden "
+              f"weights {equal}")
+        require(all(equal.values()), "cli predict from a reference checkpoint differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_serve_graph(cfg, dev) -> None:
+    """[serve-graph]: predict as one CUDA graph per (shape, correction) on
+    the SOT-2048 golden weights, on auto, auto with the comb correction and
+    GATED with the octave correction (serve_graph_route); then cli predict
+    from a reference checkpoint."""
+    t_phase = time.perf_counter()
+    base = ("cqt_project", "synth_render")
+    for label, kernels, override, on in (
+            ("auto", "auto", {}, base),
+            ("auto + comb", "auto", {"inference_comb_correction": True}, base),
+            ("gated + octave", GATED, {"inference_octave_correction": True},
+             base + ("stft_frontend", "conv1d_forward"))):
+        serve_graph_route(cfg.replace(**override), dev, label, kernels, on)
+    cli_predict_reference(cfg, dev)
+    print(f"[serve-graph] the phase took {time.perf_counter() - t_phase:.1f} s of host clock")
+
+
 TRAIN_RUN_EPOCHS = 3     # the run: 3 epochs, an evaluation after each
 ROLL_OFF_LIMIT = 1e-5    # the roll-off FIR, card against CPU on one signal: max|d| / max
 
@@ -3358,6 +3561,11 @@ def main() -> int:
     mod = check_golden(cfg, dev)
     serving_launches, last_request = serve(cfg, mod)
     profile_device("one served request", lambda: predict(mod, last_request))
+    seen = kernels_in_trace("one served request")
+    require(seen == {"cqt_project", "synth_render"},
+            f"the trace of one served request holds the hand-written kernels {sorted(seen)}, "
+            f"not kernels 1 and 2 alone")
+    check_serve_graph(cfg, dev)
 
     # the train step's kernels on real SOT rows of the trained models
     batches = make_requests(cfg, dev, 1 + TIMING_INPUTS, seed=3000)
@@ -3452,6 +3660,7 @@ def main() -> int:
 
     print(f"[profile] device busy ms: {json.dumps(BUSY_MS)} | {card}")
     print(f"[train-graph] readings: {json.dumps(GRAPH_READINGS)} | {card}")
+    print(f"[serve-graph] readings: {json.dumps(SERVE_READINGS)} | {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,12 @@ Every command but ``list`` runs on the GPU unless ``--device cpu`` asks for
 the CPU; without a GPU and without ``--device`` it raises. A run directory
 holds ``train_config.json`` (the resolved config), ``log.jsonl``,
 ``checkpoints/{best-lsd,last}`` and ``best_metrics.json``; ``--ckpt`` takes
-a run checkpoint, whose run's ``train_config.json`` is used, or a
+a run checkpoint, whose run's ``train_config.json`` is used, a
 ``torch.save`` of the encoder's ``state_dict`` (for weights trained by the
-JAX package, build one with ``convert.params_from_flax``). ``train
+JAX package, build one with ``convert.params_from_flax``), or a reference
+Lightning checkpoint (``models/import_torch.py``), told apart by content.
+``predict`` runs each batch shape as one CUDA graph on the GPU
+(``trainer.predict``). ``train
 --profile`` first traces a few warmed-up train steps (on the GPU, replays
 of the step's CUDA graph) into ``<out>/trace`` and prints the device-time
 table (``training/profiling.py``); ``train --figures`` is not ported
@@ -145,7 +148,9 @@ def _resolve(device):
 
 def _model(cfg, args, device):
     """Modules for ``cfg`` with ``--ckpt``'s encoder weights (or a seed-0
-    initialisation without one)."""
+    initialisation without one): a run checkpoint, a ``torch.save`` of the
+    encoder's ``state_dict`` or a reference Lightning checkpoint
+    (``checkpoint.encoder_state``)."""
     import torch
 
     from sot_tpu_torch.training import checkpoint as ckpt_lib
@@ -153,7 +158,7 @@ def _model(cfg, args, device):
 
     mod = build_modules(cfg, device=device, generator=torch.Generator().manual_seed(0))
     if args.ckpt:
-        mod.encoder.load_state_dict(ckpt_lib.encoder_state(args.ckpt))
+        mod.encoder.load_state_dict(ckpt_lib.encoder_state(args.ckpt, mod.encoder))
     return mod
 
 
@@ -427,7 +432,8 @@ def build_parser() -> argparse.ArgumentParser:
     pr = sub.add_parser("predict", help="batch inference on audio clips")
     pr.add_argument("--experiment", default="SOT-2048", choices=sorted(EXPERIMENTS))
     pr.add_argument("--ckpt", required=True,
-                    help="a run checkpoint or a torch.save of the encoder state_dict")
+                    help="a run checkpoint, a torch.save of the encoder state_dict or a "
+                         "reference Lightning checkpoint")
     pr.add_argument("--input", required=True,
                     help=".npy [T] or [batch, T] float audio @ the model's "
                          "sample rate, or .npz with a 'signals' array")

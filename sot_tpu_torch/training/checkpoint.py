@@ -24,6 +24,8 @@ from typing import Any, Dict
 
 import torch
 
+from sot_tpu_torch.models import import_torch
+
 FORMAT = "sot_tpu_torch.checkpoint/1"
 
 
@@ -79,11 +81,27 @@ def load(path: str) -> Dict[str, Any]:
     return data
 
 
-def encoder_state(path: str) -> Dict[str, torch.Tensor]:
-    """The encoder's ``state_dict`` from a run checkpoint or from a bare
-    ``torch.save`` of the encoder's ``state_dict``."""
+def encoder_state(path: str, encoder: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``encoder``'s ``state_dict`` from the file ``path``, decided by its
+    content: a run checkpoint of this package, a bare ``torch.save`` of the
+    encoder's ``state_dict`` (its keys are the encoder's), or a reference
+    checkpoint (a Lightning ``.ckpt`` or its bare ``state_dict``, with or
+    without the ``encoder.`` prefix), mapped by
+    ``models.import_torch.import_encoder_state``. Anything else raises,
+    naming the keys it found."""
     data = _read(path)
-    return data["encoder"] if _is_payload(data) else data
+    if _is_payload(data):
+        return data["encoder"]
+    if isinstance(data, dict):
+        if set(data) == set(encoder.state_dict()):
+            return data
+        sd = data.get("state_dict", data)
+        if isinstance(sd, dict) and import_torch.is_reference_layout(sd):
+            return import_torch.import_encoder_state(encoder, sd)
+    found = sorted(map(str, data)) if isinstance(data, dict) else type(data).__name__
+    raise ValueError(f"{path} is neither a run checkpoint ({FORMAT}), nor the encoder's "
+                     f"state_dict, nor a reference checkpoint (no {import_torch.REFERENCE_MARK}); "
+                     f"found {found}")
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:

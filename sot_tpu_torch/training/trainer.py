@@ -24,7 +24,9 @@
     corrections leave it
   * ``apply_octave_correction`` / ``apply_comb_correction`` — the
     unsupervised pitch corrections with the config's thresholds
-  * ``predict`` — the deployment inference entry
+  * ``predict`` / ``PredictGraph`` — the deployment inference entry: on
+    the GPU one CUDA graph per input shape and correction flag (the JAX
+    package's jitted ``predict``), on the CPU the same body eagerly
   * ``train`` — the training run: epochs of shuffled batches from the
     device-resident train split, periodic evaluation on the val split,
     the init-probe restarts, the best-LSD snapshot, checkpoints
@@ -77,6 +79,10 @@ class Modules:
     device: torch.device
     kernels: KernelGates  # the kernel gates (resolved from a preset name)
     evaluation_metrics: Dict[str, bool]
+    # ``predict``'s CUDA graphs, by (input shape, octave_correction); freed
+    # with these Modules (a copy made by ``dataclasses.replace`` starts empty)
+    serve_graphs: Dict[Tuple[Tuple[int, ...], bool], "PredictGraph"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
 
 def build_modules(cfg: ExperimentConfig, device: DeviceLike = None,
@@ -690,6 +696,76 @@ def evaluate(mod: Modules, eval_step: Callable, split: data_lib.SplitArrays,
     return {k: v / max(count, 1) for k, v in sums.items()}
 
 
+def _predict_body(mod: Modules, x: torch.Tensor, octave_correction: bool
+                  ) -> Dict[str, torch.Tensor]:
+    """The serving math, the body ``PredictGraph`` captures and the CPU runs:
+    ``forward`` in eval mode, then the comb correction under
+    ``cfg.inference_comb_correction``, else the octave correction under
+    ``octave_correction``. x: [batch, n_samples] on ``mod.device``."""
+    out = forward(mod, x)
+    if mod.config.inference_comb_correction:
+        out["pitch_hz"], out["pitch_unit"] = apply_comb_correction(mod, x, out["pitch_hz"])
+    elif octave_correction:
+        out["pitch_hz"], out["pitch_unit"] = apply_octave_correction(mod, x, out["pitch_hz"])
+    return out
+
+
+def _weight_addresses(mod: Modules) -> Tuple[int, ...]:
+    return tuple(p.data_ptr() for p in mod.encoder.parameters())
+
+
+class PredictGraph:
+    """``_predict_body`` for one input shape and one ``octave_correction``
+    captured into a CUDA graph under ``inference_mode`` (the JAX package's
+    ``jax.jit(partial(predict, mod))``, compiled per shape).
+
+    The request is copied into a static input buffer (host-to-device from
+    numpy or a CPU tensor, device-to-device from a CUDA tensor), the graph
+    is replayed, and the outputs are cloned out of the graph's buffers, so
+    a call's tensors are not overwritten by the next request. The weights
+    are read where they are: an in-place ``load_state_dict`` is what the
+    next replay uses. The graph keeps no reference to the ``Modules``; it
+    records the weights' addresses, and ``predict`` captures again when a
+    parameter tensor was replaced (``reads``). Warmed up on a side stream
+    first, so the capture launches nothing new (the device constants, the
+    CQT tile plan, the synth's tables, cuFFT plans); a capture that fails
+    raises. Launch counts advance per replay as in ``TrainGraph``.
+    """
+
+    def __init__(self, mod: Modules, x: torch.Tensor, octave_correction: bool):
+        if mod.device.type != "cuda":
+            raise ValueError(f"PredictGraph: a CUDA graph needs the model on the GPU "
+                             f"(model on {mod.device})")
+        dev = mod.device
+        self.addresses = _weight_addresses(mod)
+        with torch.inference_mode():
+            self.x = torch.empty(tuple(x.shape), dtype=torch.float32, device=dev)
+            self.x.copy_(x)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP):
+                    _predict_body(mod, self.x, octave_correction)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            before = launches_lib.read()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = _predict_body(mod, self.x, octave_correction)
+        self.launches = launches_lib.delta(before, launches_lib.read())
+        launches_lib.write(before)
+
+    def reads(self, mod: Modules) -> bool:
+        """Whether ``mod``'s weights are still the tensors it captured."""
+        return _weight_addresses(mod) == self.addresses
+
+    def __call__(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            self.x.copy_(x)
+            self.graph.replay()
+            launches_lib.add(self.launches)
+            return {k: v.clone() for k, v in self.out.items()}
+
+
 def predict(mod: Modules, x, octave_correction: Optional[bool] = None
             ) -> Dict[str, torch.Tensor]:
     """Deployment inference entry: pitch + harmonic amplitudes for audio x
@@ -699,17 +775,25 @@ def predict(mod: Modules, x, octave_correction: Optional[bool] = None
     prediction: the comb rule under ``cfg.inference_comb_correction``, else
     the octave rule under ``octave_correction`` (default
     ``cfg.inference_octave_correction``).
+
+    On the GPU each (input shape, ``octave_correction``) is one
+    ``PredictGraph`` in ``mod.serve_graphs``, captured at its first request
+    and replayed for the next; on the CPU the same body runs eagerly.
     """
     if octave_correction is None:
         octave_correction = mod.config.inference_octave_correction
-    x = torch.as_tensor(x, dtype=torch.float32, device=mod.device)
-    with torch.inference_mode():
-        out = forward(mod, x)
-        if mod.config.inference_comb_correction:
-            out["pitch_hz"], out["pitch_unit"] = apply_comb_correction(mod, x, out["pitch_hz"])
-        elif octave_correction:
-            out["pitch_hz"], out["pitch_unit"] = apply_octave_correction(mod, x, out["pitch_hz"])
-        return out
+    octave_correction = bool(octave_correction)
+    if mod.device.type != "cuda":
+        with torch.inference_mode():
+            x = torch.as_tensor(x, dtype=torch.float32, device=mod.device)
+            return _predict_body(mod, x, octave_correction)
+    x = torch.as_tensor(x, dtype=torch.float32)
+    key = (tuple(x.shape), octave_correction)
+    graph = mod.serve_graphs.get(key)
+    if graph is None or not graph.reads(mod):
+        mod.serve_graphs.pop(key, None)  # a replaced weight: free the old graph first
+        graph = mod.serve_graphs[key] = PredictGraph(mod, x, octave_correction)
+    return graph(x)
 
 
 # ---------------------------------------------------------------------------

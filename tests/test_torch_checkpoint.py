@@ -84,10 +84,11 @@ def test_checkpoint_round_trip_is_bit_equal(tmp_path, one_thread):
     assert fresh.encoder.dropout.generator is fresh_state.generator
     assert fresh_state.scheduler.last_epoch == 3
     # the encoder-only reader used by evaluate/predict/analyze takes both formats
-    assert tree_diff(ckpt_lib.encoder_state(last), written["encoder"]) == []
+    assert tree_diff(ckpt_lib.encoder_state(last, fresh.encoder), written["encoder"]) == []
     bare = tmp_path / "encoder.pt"
     torch.save(mod.encoder.state_dict(), bare)
-    assert tree_diff(ckpt_lib.encoder_state(str(bare)), mod.encoder.state_dict()) == []
+    assert tree_diff(ckpt_lib.encoder_state(str(bare), fresh.encoder),
+                     mod.encoder.state_dict()) == []
     with pytest.raises(ValueError, match="not a run checkpoint"):
         ckpt_lib.load(str(bare))
 
@@ -182,3 +183,49 @@ def test_loss_trajectory_reads_a_port_log(tmp_path):
     assert all(isinstance(r["step"], float) for r in records)
     assert verdict.loss_trajectory(str(tmp_path), "run", at_steps=(1000, 3000, 10000)) == {
         "1000": 80.5, "3000": 45.25, "10000": 30.0}
+
+
+def test_encoder_state_reads_three_formats_and_names_the_keys_of_others(tmp_path):
+    """``encoder_state`` decides by content: a run checkpoint, a bare port
+    state dict and a reference (Lightning) checkpoint, bare or in a
+    ``state_dict`` entry; anything else raises, naming the keys it found."""
+    from sot_tpu_torch.models.import_torch import import_encoder_state
+    from tests._torch_parity import reference_layout
+
+    mod = ttrainer.build_modules(get_experiment("SOT-2048"), device="cpu",
+                                 generator=torch.Generator().manual_seed(4))
+    own = mod.encoder.state_dict()
+    run = ckpt_lib.save(str(tmp_path / "ckpt"), mod, ttrainer.init_state(mod), 0, tag="last")
+    bare = str(tmp_path / "encoder.pt")
+    torch.save(own, bare)
+    for path in (run, bare):
+        assert tree_diff(ckpt_lib.encoder_state(path, mod.encoder), own) == []
+
+    ref = {k: torch.from_numpy(v) for k, v in reference_layout(seed=8).items()}
+    want = import_encoder_state(mod.encoder, ref)
+    # by name, apart from the import's own map
+    assert torch.equal(want["conv4b.weight"], ref["conv4.3.weight"])
+    assert torch.equal(want["prefilt.0.bias"], ref["prefilt_list.0.0.bias"])
+    assert torch.equal(want["frequency.0.weight"], ref["linear.frequency.0.weight"].reshape(-1))
+    blobs = {"lightning.ckpt": {"state_dict": {"encoder." + k: v for k, v in ref.items()},
+                                "epoch": 7, "global_step": 99},
+             "reference.pt": ref}
+    for name, blob in blobs.items():
+        torch.save(blob, tmp_path / name)
+        got = ckpt_lib.encoder_state(str(tmp_path / name), mod.encoder)
+        assert tree_diff(got, want) == [], name
+        mod.encoder.load_state_dict(got)  # strict
+
+    others = {"other.pt": {"alpha": torch.zeros(2), "beta": torch.ones(1)},
+              "short.pt": {k: v for k, v in own.items() if k != "conv1.bias"},
+              "tensor.pt": torch.zeros(3)}
+    for name, blob in others.items():
+        torch.save(blob, tmp_path / name)
+        with pytest.raises(ValueError, match="neither a run checkpoint") as exc:
+            ckpt_lib.encoder_state(str(tmp_path / name), mod.encoder)
+        if name == "other.pt":
+            assert "['alpha', 'beta']" in str(exc.value)
+        elif name == "short.pt":
+            assert "'conv1.weight'" in str(exc.value)
+        else:
+            assert "Tensor" in str(exc.value)

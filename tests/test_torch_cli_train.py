@@ -119,7 +119,7 @@ def _val_pitches(run_dir, correction=None):
     tcfg = get_experiment("SOT-512", dataset_size=32, **TINY_KW)
     mod = ttrainer.build_modules(tcfg, device="cpu")
     mod.encoder.load_state_dict(ckpt_lib.encoder_state(
-        os.path.join(run_dir, "checkpoints", "best-lsd")))
+        os.path.join(run_dir, "checkpoints", "best-lsd"), mod.encoder))
     split = tdata.dataset_from_config(tcfg, device="cpu")["val"]
     x = torch.from_numpy(tdata.peak_normalize(split.x))
     with torch.no_grad():

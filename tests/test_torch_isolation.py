@@ -37,7 +37,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_sot_tpu():
     # the walk really imported the package's modules
     for mod in ("sot_tpu_torch.training.trainer", "sot_tpu_torch.ops.kernels.cqt",
                 "sot_tpu_torch.ops.kernels.synth", "sot_tpu_torch.cli",
-                "sot_tpu_torch.ops.kernels.plane", "sot_tpu_torch.metrics"):
+                "sot_tpu_torch.ops.kernels.plane", "sot_tpu_torch.metrics",
+                "sot_tpu_torch.models.import_torch"):
         assert mod in res["loaded"]
 
 
