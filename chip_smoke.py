@@ -3,7 +3,9 @@
 path (predict), the SOT-2048 train step, the SOT-512 family's train step
 and evaluation, SOT-2048 evaluation with the pitch corrections, the
 training run through the CLI (train, resume, evaluate, predict, probes,
-MSS-LogLin's roll-off, --profile), the gated train step (the ``full`` merge
+MSS-LogLin's roll-off, --profile, --figures), the paper table
+(eval_paper) over the seven families, the remaining library ops (angular
+phase, bicubic/nearest resampling, loudness), the gated train step (the ``full`` merge
 route, the STFT frontend and the conv kernels: ``KernelGates(
 w2_merge="full", conv=True, stft_frontend=True)``), the train step and
 the evaluation as CUDA graphs, and the served model as a CUDA graph.
@@ -143,6 +145,23 @@ Phases (any failure raises and the script exits non-zero):
                predict with inference_comb_correction under auto (pitch
                within 1e-3 of JAX's) and GATED (the correction's STFT on
                kernel 9), its comb factors on JAX's pitches equal to JAX's
+ 9c. small-ops — at the synth's full shape, 64 clips x 4096 samples x 20
+               harmonics, on the card against the port on the CPU or float64:
+               angular_cumsum (sin of the phase within 1e-3 on the lanes
+               below Nyquist throughout, the phase in [0, 2pi)), Sinusoidal with use_angular_cumsum and with
+               amp_resample_method="bicubic" (synth_render launched 0
+               times, audio within SYNTH_PATH_LIMIT of the CPU's; the
+               angular one also of the kernel path),
+               bicubic and nearest resampling of the [64, 16, 20] controls,
+               get_loudness of the predict golden's 64 clips (LOUDNESS_TOL)
+ 9d. figures — trainer.make_viz_step with the SOT-2048 golden weights on the
+               64 clips: pitch_hz against JAX's (rel 1e-3), the spectra,
+               pitch and probabilities against the CPU (VIZ_LIMIT), x_hat
+               within the synth's limits (SYNTH_PATH_LIMIT, corr > 0.9999),
+               kernels 1 and 2 launched; then cli train --figures, FIGURE_STEPS
+               steps and one evaluation: with matplotlib the gallery's files
+               under the JAX package's names (FIGURE_FILES), without it the
+               error naming matplotlib (the line says which)
  9b. train-golden-gated — the same for sot2048_seed42_trainstep_gated.npz
                (JAX with SOT_TPU_W2_MERGE=1, SOT_TPU_STFT_PALLAS=1,
                SOT_TPU_CONV_PALLAS=1) against the port under GATED: kernel 8
@@ -230,6 +249,24 @@ Phases (any failure raises and the script exits non-zero):
                synth_fwd_kernel, synth_bwd_kernel, coupling_fwd_kernel,
                refgrad_kernel) in the trace of the replays
 
+ 11b. paper-table — eval_paper.main on the card at full width over a runs dir
+               of the golden's seven seed-42 runs (sot_tpu_torch/golden/
+               paper_seed42.npz as port run checkpoints, each preset's
+               train_config.json), one SOT-2048 run trained here for an epoch
+               (cli train --seed 7) and a run with a JAX-style best-lsd
+               directory, under cudnn.deterministic: the launches of each
+               run's evaluation (kernels 1 and 2 in every family's, the SOT
+               value kernel of the auto route in each SOT family's); each
+               seed-42 evaluation against JAX's of the same weights on the
+               same clips (EVAL_REL, one frame of the 400-clip split as
+               evaluate weighs it), its paper row against JAX's own row
+               (PAPER_ROW_REL, PAPER_ROW_FRAMES); frames near the 50-cent
+               bound printed on a miss; the seed-7 row equal to cli evaluate
+               of its checkpoint; the three files with the JAX package's keys,
+               the CSV equal to format_paper_table of the JSON rows, each run
+               in its own family's row only (SOT-2048 n = 2, [n=2]), the
+               JAX-style run named and left out
+
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations, device times torch.profiler; a [profile] line sums the
 device busy ms of each profiled request and step, a [train-graph] line
@@ -240,6 +277,7 @@ the step graph's readings and a [serve-graph] line the served graph's. The last 
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import hashlib
@@ -2556,20 +2594,20 @@ def check_eval_512(cfg, dev):
     eval_metrics_check("eval-512", got, ref)
 
 
-def eval_metrics_check(phase, got, ref, ref_name="JAX") -> None:
+def eval_metrics_check(phase, got, ref, ref_name="JAX", frame=EVAL_FRAME) -> None:
     """The port's ``evaluate`` metrics against JAX's (or another reference,
     ``ref_name``): LSD, MSE, MSS and the loss terms within EVAL_REL, the
-    pitch accuracies and the octave difference within one frame
-    (EVAL_FRAME)."""
+    pitch accuracies and the octave difference within one frame's weight
+    (``frame``, by default EVAL_FRAME: one batch of 64 clips)."""
     require(set(got) == set(ref), f"eval metric names {sorted(got)} != {sorted(ref)}")
     frame_wise = ("raw_pitch_accuracy", "raw_chroma_accuracy", "octave_difference")
     misses = []
     for k in sorted(ref):
         d = abs(got[k] - ref[k])
-        ok = d <= EVAL_FRAME + 1e-7 if k in frame_wise else d <= EVAL_REL * abs(ref[k])
+        ok = d <= frame + 1e-7 if k in frame_wise else d <= EVAL_REL * abs(ref[k])
         misses += [] if ok else [k]
         print(f"[{phase}] {k}: port {got[k]:.6f} {ref_name} {ref[k]:.6f} |d| {d:.3e} ("
-              + (f"limit {EVAL_FRAME:.3e}, one frame)" if k in frame_wise
+              + (f"limit {frame:.3e}, one frame)" if k in frame_wise
                  else f"rel {d / abs(ref[k]):.3e}, limit {EVAL_REL})"))
     require(all(math.isfinite(v) for v in got.values()), f"{phase}: non-finite eval metrics")
     require(not misses, f"{phase}: eval metrics disagree with {ref_name}: {misses}")
@@ -3527,8 +3565,423 @@ def check_mss_loglin(dev, overrides, dataset_size, x_all) -> None:
     require(fir_err <= ROLL_OFF_LIMIT, "MSS-LogLin: the roll-off FIR on the card disagrees")
 
 
+# ---------------------------------------------------------------------------
+# [paper-table], [figures], [small-ops]
+# ---------------------------------------------------------------------------
+
+GOLDEN_PAPER = os.path.join(ROOT, "sot_tpu_torch", "golden", "paper_seed42.npz")
+PAPER_SEED = 42        # the golden's runs
+PAPER_EXTRA_SEED = 7   # one more SOT-2048 run, trained by the phase for one epoch
+FIGURE_STEPS = 4       # [figures]: cli train --figures, one evaluation at the end
+# the gallery's files of one evaluation, the JAX package's names
+# (sot_tpu/training/observability.py: Signal_<step name>_<name>.png)
+FIGURE_FILES = tuple(f"Signal_val_{name}.png" for name in (
+    "Original_Signal", "Reconstructed_Signal", "Original_Spectrum", "Reconstructed_Spectrum",
+    "Original_vs_Reconstructed", "Probabilities", "Quantile_Functions"))
+VIZ_LIMIT = 1e-3       # [figures]: the predict golden's limit, max|d| / max|ref|
+SYNTH_PATH_LIMIT = 2e-2  # the synth's audio limit (JAX's), max|d|; [small-ops], [figures] x_hat
+LOUDNESS_TOL = (1e-4, 1e-3)  # [small-ops]: get_loudness card vs CPU, (rtol, atol)
+# [paper-table]: the paper row against JAX's own row, whose clips differ
+# (tests/_torch_golden_paper.py); the sharp gate is eval_metrics_check against
+# JAX's model on the port's clips
+PAPER_ROW_REL = 1e-2
+PAPER_ROW_FRAMES = 2
+
+
+def paper_golden():
+    with np.load(GOLDEN_PAPER) as z:
+        return {k: z[k] for k in z.files}
+
+
+def paper_families(g) -> list:
+    """The golden's families, in the order it wrote them."""
+    return [k[:-len("/step")] for k in g if k.endswith("/step")]
+
+
+def split_frame_weight(n_clips: int, batch: int, frames: int) -> float:
+    """The largest weight one frame has in ``evaluate``'s mean over a split
+    of ``n_clips``: batches weighted equally, the last one short."""
+    n_batches = -(-n_clips // batch)
+    last = n_clips - (n_batches - 1) * batch
+    return 1.0 / (n_batches * last * frames)
+
+
+def write_paper_runs(runs: str, g, families, overrides) -> None:
+    """``<runs>/<EXP>-42``: the preset's ``train_config.json`` and
+    ``checkpoints/best-lsd``, a run checkpoint of the golden's weights (of a
+    seeded initialisation when ``overrides`` shrink the model, the CPU
+    rehearsal); and ``MSS-Lin-5`` with a JAX-style ``best-lsd`` directory,
+    which ``eval_paper`` must name and leave out."""
+    cpu = torch.device("cpu")
+    for exp in families:
+        cfg = get_experiment(exp, **overrides)
+        run = os.path.join(runs, f"{exp}-{PAPER_SEED}")
+        cli_lib._save_resolved_config(cfg, run)
+        mod = build_modules(cfg, device=cpu, generator=torch.Generator().manual_seed(0))
+        if not overrides:
+            prefix = f"{exp}/"
+            mod.encoder.load_state_dict(params_from_flax(flax_tree_from_flat(
+                {k[len(prefix):]: v for k, v in g.items() if k.startswith(prefix + "params/")})))
+        ckpt_lib.save(os.path.join(run, "checkpoints"), mod, trainer.init_state(mod),
+                      int(g[f"{exp}/step"]), tag="best-lsd")
+    os.makedirs(os.path.join(runs, "MSS-Lin-5", "checkpoints", "best-lsd"))
+
+
+def paper_row_check(exp, row, g, frame) -> None:
+    """The paper row of ``exp`` against the JAX package's own row (JAX's
+    model on JAX's clips, which differ from the port's by the two synth
+    paths' phase rounding, ``data/test_x_max_abs_diff``): LSD, MSE and MSS
+    within PAPER_ROW_REL, OD, RPA and RCA within PAPER_ROW_FRAMES frames
+    (scaled as the rename scales them)."""
+    from sot_tpu_torch import eval_paper
+
+    misses = []
+    for key, (col, scale) in eval_paper.RENAME.items():
+        ref = float(g[f"{exp}/paper/{col}"])
+        d = abs(row[col] - ref)
+        frame_wise = key in ("octave_difference", "raw_pitch_accuracy", "raw_chroma_accuracy")
+        limit = PAPER_ROW_FRAMES * frame * abs(scale) if frame_wise else PAPER_ROW_REL * abs(ref)
+        misses += [] if d <= limit + 1e-7 * abs(scale) else [col]
+        print(f"[paper-table {exp}] paper row {col}: port {row[col]:.6f}, JAX's own row "
+              f"{ref:.6f} |d| {d:.3e} (limit {limit:.3e})")
+    require(not misses, f"{exp}: the paper row is off JAX's own row: {misses}")
+
+
+def boundary_frames(exp, run, dev, bound_cents: float = 1.0) -> None:
+    """The frames of ``run``'s test split whose pitch error lies within
+    ``bound_cents`` of the accuracies' 50-cent bound (in pitch or chroma):
+    the frames a rounding can flip."""
+    from sot_tpu_torch import eval_paper
+
+    cfg = cli_lib._config_for_ckpt(argparse.Namespace(
+        ckpt=eval_paper.best_lsd_path(run), experiment=exp, dataset=None, dataset_size=None,
+        set=None))
+    mod = build_modules(cfg, device=dev)
+    mod.encoder.load_state_dict(ckpt_lib.load(eval_paper.best_lsd_path(run))["encoder"])
+    split = data_lib.dataset_from_config(cfg, device=dev)["test"]
+    with torch.no_grad():
+        pitch = np.concatenate([trainer.forward(mod, torch.from_numpy(b["x"]).to(dev))[
+            "pitch_hz"].cpu().numpy() for b in data_lib.iterate_batches(split, cfg.batch_size)])
+    cents = 1200.0 * np.log2(np.maximum(pitch[..., 0], 1e-6) / split.frequency[:, :1])
+    chroma = np.abs((cents + 600.0) % 1200.0 - 600.0)
+    for name, err in (("pitch", np.abs(cents)), ("chroma", chroma)):
+        for clip, frame in zip(*np.nonzero(np.abs(err - 50.0) < bound_cents)):
+            print(f"[paper-table] {exp}: clip {clip} frame {frame}: {name} error "
+                  f"{err[clip, frame]:.4f} cents against the 50-cent bound "
+                  f"(pitch {pitch[clip, frame, 0]:.4f} Hz, f0 {split.frequency[clip, 0]:.4f} Hz)")
+
+
+def check_paper_table(dev, overrides=None, dataset_size=None) -> None:
+    """[paper-table]: ``eval_paper.main`` over a runs dir holding the
+    golden's seven seed-42 runs (``write_paper_runs``) and one more SOT-2048
+    run trained here for an epoch (``cli train --seed 7``), under
+    ``cudnn.deterministic``: each seed-42 row against the JAX package's
+    (``eval_metrics_check``, the frame-wise metrics within one frame of the
+    test split), the seed-7 row equal to ``cli evaluate`` of the same
+    checkpoint, the three files with the JAX package's keys, the CSV equal
+    to ``format_paper_table`` of the JSON rows, every run in exactly its
+    family's row (SOT-2048 n = 2, labelled ``[n=2]``), the JAX-style
+    ``best-lsd`` named and left out, kernels 1 and 2 launched in every
+    run's evaluation and the route's SOT value kernel in each SOT family's.
+    ``overrides`` and ``dataset_size`` shrink the configs (the CPU
+    rehearsal, which holds no row to the golden); the card runs them at full
+    width."""
+    import io
+    import shutil
+    import tempfile
+
+    from sot_tpu_torch import eval_paper
+
+    t_phase = time.perf_counter()
+    overrides = dict(overrides or {})
+    if dataset_size:
+        overrides["dataset_size"] = dataset_size
+    g = paper_golden()
+    families = paper_families(g)
+    flags = [a for k, v in overrides.items() for a in ("--set", f"{k}={json.dumps(v)}")]
+    flags += device_flags(dev)
+    cfg = get_experiment("SOT-2048", **overrides)
+    epoch = int((1 - 0.2 - 0.1) * cfg.dataset_size) // cfg.batch_size
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_paper_", dir=os.path.join(ROOT, "runs"))
+    card = card_line() if dev.type == "cuda" else "cpu"
+    try:
+        runs, out = os.path.join(tmp, "runs"), os.path.join(tmp, "results")
+        write_paper_runs(runs, g, families, overrides)
+        extra = os.path.join(runs, f"SOT-2048-{PAPER_EXTRA_SEED}")
+        run_cli(["train", "--experiment", "SOT-2048", "--seed", str(PAPER_EXTRA_SEED),
+                 "--kernels", "auto", "--steps", str(epoch), "--eval-every", str(epoch),
+                 "--out", extra] + flags)
+
+        evaluated = {}
+        real = eval_paper.evaluate_run
+
+        def spy(experiment, run_dir, dataset, split="test", device=None):
+            reset_launches()
+            t0 = time.perf_counter()
+            m = real(experiment, run_dir, dataset, split, device)
+            evaluated[os.path.basename(run_dir)] = (experiment, read_launches(), m,
+                                                    time.perf_counter() - t0)
+            return m
+
+        buf = io.StringIO()
+        with cudnn_deterministic(True), mock.patch.object(eval_paper, "evaluate_run", spy), \
+                contextlib.redirect_stdout(buf):
+            rc = eval_paper.main(["--runs-dir", runs, "--out", out, "--experiments", *families]
+                                 + device_flags(dev))
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"[paper-table] {line}")
+        require(rc == 0, f"eval_paper returned {rc}")
+        require("MSS-Lin: skipped" in text and "MSS-Lin-5" in text,
+                "eval_paper did not name the run without a readable best-lsd")
+        for run, (exp, launches, _, secs) in evaluated.items():
+            print(f"[paper-table] {run}: evaluate {secs:.2f} s host clock; launches during its "
+                  f"evaluation {launches} | {card}")
+
+        # the files, their keys, the CSV, the family rows
+        paths = {f: os.path.join(out, f) for f in eval_paper.FILES}
+        require(all(os.path.isfile(p) for p in paths.values()), "an eval_paper file is missing")
+        with open(paths["synthetic_results_best-lsd.json"]) as fh:
+            per_run = json.load(fh)
+        with open(paths["synthetic_results_paper_best-lsd.json"]) as fh:
+            table = json.load(fh)
+        with open(paths["synthetic_results_paper_best-lsd.csv"]) as fh:
+            csv_text = fh.read()
+        cols = [name for name, _ in eval_paper.RENAME.values()]
+        require(all(list(r) == ["experiment", *cols, "run"] for r in per_run),
+                "per-run rows: not the JAX package's keys")
+        require(list(table) == families and all(
+            list(row) == cols and all(list(c) == ["mean", "std", "median", "n"]
+                                      for c in row.values()) for row in table.values()),
+                "paper rows: not the JAX package's keys")
+        require(csv_text == "\n".join(eval_paper.format_paper_table(table)) + "\n",
+                "the CSV is not format_paper_table of the JSON rows")
+        counts = {exp: table[exp]["LSD"]["n"] for exp in table}
+        print(f"[paper-table] runs per family row: {counts}")
+        require(counts == {exp: 2 if exp == "SOT-2048" else 1 for exp in families},
+                "a run was counted outside its own family's row")
+        sot_line = next(line for line in csv_text.splitlines() if line.startswith("SOT-2048,"))
+        require(sot_line.count("[n=2]") == len(cols), "the SOT-2048 row lacks its [n=2] labels")
+        require(sorted(r["run"] for r in per_run)
+                == sorted([f"{e}-{PAPER_SEED}" for e in families]
+                          + [f"SOT-2048-{PAPER_EXTRA_SEED}"]), "per-run rows: wrong runs")
+
+        # the seed-7 row against cli evaluate of the same checkpoint
+        buf = io.StringIO()
+        with cudnn_deterministic(True), contextlib.redirect_stdout(buf):
+            rc = cli_lib.main(["evaluate", "--ckpt", eval_paper.best_lsd_path(extra),
+                               "--split", "test"] + device_flags(dev))
+        require(rc == 0, f"cli evaluate returned {rc}")
+        cli_m = json.loads(buf.getvalue())["test_metrics"]
+        row7 = next(r for r in per_run if r["run"] == f"SOT-2048-{PAPER_EXTRA_SEED}")
+        want = eval_paper.rename_metrics(cli_m)
+        diff = max(abs(row7[k] - want[k]) for k in want)
+        print(f"[paper-table] SOT-2048-{PAPER_EXTRA_SEED} row against cli evaluate of its "
+              f"best-lsd (cudnn.deterministic): max|d| {diff:.3e} (limit 0, bit-equal)")
+        require(all(row7[k] == want[k] for k in want),
+                "the seed-7 row differs from cli evaluate")
+
+        # the seed-42 rows against the JAX package's (full width only)
+        for exp in families:
+            _, launches, m, _ = evaluated[f"{exp}-{PAPER_SEED}"]
+            cfg_e = get_experiment(exp)
+            if dev.type == "cuda":
+                value = ({"plane": "sot_plane_forward"}.get(
+                    wasserstein_lib.w2_route(cfg_e.transform_n_fft // 2 + 1, "auto"),
+                    "merge_coupling") if any(lc.kind == "wasserstein" for lc in cfg_e.losses)
+                    else None)
+                need = ("cqt_project", "synth_render") + ((value,) if value else ())
+                require(all(launches[k] > 0 for k in need),
+                        f"{exp}: kernels {need} did not all launch in its evaluation")
+            if overrides:
+                continue
+            split = data_lib.dataset_from_config(cfg_e, device=dev)["test"]
+            require(np.array_equal(split.frequency, g["data/test_frequency"]),
+                    f"{exp}: the test split's f0 differ from the golden's")
+            frames = (cfg_e.n_samples - 1) // cfg_e.cqt_hop_length + 1  # forward drops a sample
+            frame = split_frame_weight(len(split), cfg_e.batch_size, frames)
+            ref = {k[len(f"{exp}/eval_port_data/"):]: float(g[k]) for k in g
+                   if k.startswith(f"{exp}/eval_port_data/")}
+            row = next(r for r in per_run if r["run"] == f"{exp}-{PAPER_SEED}")
+            require(all(row[k] == v for k, v in eval_paper.rename_metrics(m).items()),
+                    f"{exp}: the written row is not rename_metrics of its evaluation")
+            try:
+                eval_metrics_check(f"paper-table {exp}", m, ref, "JAX on these clips",
+                                   frame=frame)
+                paper_row_check(exp, row, g, frame)
+            except RuntimeError:
+                boundary_frames(exp, os.path.join(runs, f"{exp}-{PAPER_SEED}"), dev)
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[paper-table] the phase took {time.perf_counter() - t_phase:.1f} s of host clock "
+          f"| {card}")
+
+
+def check_figures(dev, overrides=None, dataset_size=None) -> None:
+    """[figures]: ``make_viz_step`` with the SOT-2048 golden weights on the
+    predict golden's 64 clips on the card: ``pitch_hz`` against JAX's
+    (``sot2048_seed42_eval.npz``, rel 1e-3), the spectra, the pitch and the
+    probabilities against the port's viz step on the CPU (VIZ_LIMIT), x_hat
+    within the synth's limits (SYNTH_PATH_LIMIT, correlation > 0.9999),
+    kernels 1 and 2 launched; then ``cli train --figures`` for FIGURE_STEPS
+    steps and one evaluation: with matplotlib the figure tree with the JAX
+    package's file names, without it the error naming matplotlib."""
+    import shutil
+    import tempfile
+
+    cfg = get_experiment("SOT-2048", **dict(overrides or {}))
+    card = card_line() if dev.type == "cuda" else "cpu"
+    if not overrides:
+        g = eval_golden()
+        mods = {}
+        for where in (dev, torch.device("cpu")):
+            mods[where.type] = build_modules(cfg, device=where)
+            load_golden_weights(mods[where.type])
+        x = torch.from_numpy(g["x"])
+        reset_launches()
+        got = {k: v.cpu().numpy() for k, v in trainer.make_viz_step(mods[dev.type])(
+            x.to(dev)).items()}
+        launches = read_launches()
+        cpu = {k: v.numpy() for k, v in trainer.make_viz_step(mods["cpu"])(x).items()}
+        p_rel = float(np.max(np.abs(got["pitch_hz"] - g["pitch_hz"]) / g["pitch_hz"]))
+        errs = {k: max_rel(got[k], cpu[k])
+                for k in ("spec_x", "spec_x_hat", "probabilities", "pitch_hz")}
+        # x_hat: the synth's limits (the controls' ~1e-6 moves grow with ~1e4 rad of phase)
+        audio_err = float(np.abs(got["x_hat"] - cpu["x_hat"]).max())
+        audio_corr = float(np.corrcoef(got["x_hat"].ravel(), cpu["x_hat"].ravel())[0, 1])
+        print(f"[figures] make_viz_step, SOT-2048 golden weights, {len(x)} clips: pitch_hz max "
+              f"rel diff from JAX's {p_rel:.3e} (limit 1e-3); max|d|/max against the CPU "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (limit {VIZ_LIMIT}); x_hat max|d| {audio_err:.3e} (limit "
+              f"{SYNTH_PATH_LIMIT}), max|d|/max {max_rel(got['x_hat'], cpu['x_hat']):.3e}, corr "
+              f"{audio_corr:.7f} (limit 0.9999); shapes { {k: v.shape for k, v in got.items()} }; "
+              f"launches {launches} | {card}")
+        require(set(got) == {"x", "x_hat", "spec_x", "spec_x_hat", "probabilities", "pitch_hz"},
+                "make_viz_step: not the JAX package's keys")
+        require(all(np.isfinite(v).all() for v in got.values()), "make_viz_step: non-finite")
+        require(p_rel <= 1e-3, "make_viz_step: pitch_hz disagrees with JAX's")
+        require(max(errs.values()) <= VIZ_LIMIT and audio_err <= SYNTH_PATH_LIMIT
+                and audio_corr > 0.9999, "make_viz_step: the card disagrees with the CPU")
+        if dev.type == "cuda":
+            require(launches["cqt_project"] > 0 and launches["synth_render"] > 0,
+                    "make_viz_step did not launch kernels 1 and 2")
+        del mods
+
+    try:
+        import matplotlib
+        have = matplotlib.__version__
+    except ImportError:
+        have = None
+    flags = [a for k, v in dict(overrides or {}).items() for a in ("--set", f"{k}={json.dumps(v)}")]
+    flags += ["--dataset-size", str(dataset_size or 640)] + device_flags(dev)
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_figures_", dir=os.path.join(ROOT, "runs"))
+    argv = ["train", "--experiment", "SOT-2048", "--kernels", "auto", "--figures", "--steps",
+            str(FIGURE_STEPS), "--eval-every", str(FIGURE_STEPS), "--out", tmp] + flags
+    try:
+        if have is None:
+            try:
+                run_cli(argv)
+            except RuntimeError as exc:
+                require("matplotlib" in str(exc), f"train --figures raised without naming "
+                                                  f"matplotlib: {exc}")
+                print(f"[figures] matplotlib does not import on this machine: train --figures "
+                      f"raised as it should: {exc}")
+                return
+            require(False, "train --figures ran without matplotlib")
+        run_cli(argv)
+        step_dir = os.path.join(tmp, "figures", f"step{FIGURE_STEPS}")
+        found = sorted(os.listdir(step_dir)) if os.path.isdir(step_dir) else []
+        print(f"[figures] matplotlib {have} imports on this machine: train --figures wrote "
+              f"figures/step{FIGURE_STEPS}/ {found}")
+        require(found == sorted(FIGURE_FILES), "train --figures: not the JAX package's files")
+        require(sorted(os.listdir(os.path.join(tmp, "figures"))) == [f"step{FIGURE_STEPS}"],
+                "train --figures: figures of another step")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_small_ops(dev) -> None:
+    """[small-ops] at the synth's full shape, 64 clips x 4096 samples x 20
+    harmonics, on the card against the port on the CPU or float64:
+    ``angular_cumsum`` (sin of the phase within 1e-3 on the lanes below
+    Nyquist throughout, the phase in [0, 2pi)), ``Sinusoidal`` with ``use_angular_cumsum`` and with
+    ``amp_resample_method="bicubic"`` (no synth_render launch; audio within
+    SYNTH_PATH_LIMIT of the CPU's, and the angular phase's of the kernel
+    path, whose envelopes are the same), bicubic and nearest resampling of
+    the controls, and ``get_loudness`` of the predict golden's 64 clips."""
+    from sot_tpu_torch import features as features_lib
+    from sot_tpu_torch.ops import oscillator as osc_lib
+    from sot_tpu_torch.ops import resample as resample_lib
+
+    cfg = get_experiment("SOT-2048")
+    sr, t = cfg.sample_rate, cfg.n_samples
+    card = card_line() if dev.type == "cuda" else "cpu"
+    amps, freqs = synth_controls(np.random.default_rng(21), dev, sr)
+    env_f = resample_lib.resample(freqs, t)
+    omega = env_f * (2.0 * math.pi / sr)
+    phase = osc_lib.angular_cumsum(omega)
+    exact = torch.remainder(torch.cumsum(omega.double(), dim=1), 2.0 * math.pi)
+    # the lanes below Nyquist all through the clip: above it the amplitude is
+    # 0, and a chunk's f32 phase reaches ~1.3e4 rad (an ulp of 1e-3) and
+    # carries its rounding into the later, audible samples
+    audible = (env_f.amax(dim=1, keepdim=True) < sr / 2.0).double().expand(env_f.shape)
+    sin_err = float(((torch.sin(phase.double()) - torch.sin(exact)) * audible).abs().max())
+    sin_cpu = float(((torch.sin(phase.cpu()) - torch.sin(osc_lib.angular_cumsum(
+        omega.cpu()))).double() * audible.cpu()).abs().max())
+    lo, hi = float(phase.min()), float(phase.max())
+    print(f"[small-ops] angular_cumsum {tuple(phase.shape)}, the {float(audible.mean()):.3f} "
+          f"of lanes below Nyquist throughout: max|sin - sin(float64)| {sin_err:.3e}, "
+          f"max|sin(card) - sin(CPU)| {sin_cpu:.3e} (limit 1e-3); phase in "
+          f"[{lo:.6f}, {hi:.6f}] | {card}")
+    require(sin_err <= 1e-3 and sin_cpu <= 1e-3, "angular_cumsum: the phase disagrees")
+    require(lo >= 0.0 and hi < 2.0 * math.pi, "angular_cumsum: phase outside [0, 2pi)")
+
+    base = synths_lib.Sinusoidal(n_samples=t, sample_rate=sr, amp_scale_fn=None,
+                                 freq_scale_fn=None)
+    with torch.no_grad():
+        kernel_path = base.get_signal(amps, freqs)
+        for what, synth in (("use_angular_cumsum", dataclasses.replace(
+                base, use_angular_cumsum=True)), ("bicubic", dataclasses.replace(
+                base, amp_resample_method="bicubic"))):
+            reset_launches()
+            audio = synth.get_signal(amps, freqs)
+            n = read_launches()["synth_render"]
+            cpu = synth.get_signal(amps.cpu(), freqs.cpu())
+            errs = {"the CPU": float((audio.cpu() - cpu).abs().max())}
+            if what == "use_angular_cumsum":  # the same envelopes as the kernel's
+                errs["the kernel path"] = float((audio - kernel_path).abs().max())
+            print(f"[small-ops] Sinusoidal({what}) {tuple(audio.shape)}: synth_render launches "
+                  f"{n} (must be 0); max|d| from " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (limit {SYNTH_PATH_LIMIT})")
+            require(n == 0 and max(errs.values()) <= SYNTH_PATH_LIMIT
+                    and bool(torch.isfinite(audio).all()), f"Sinusoidal({what}) disagrees")
+
+        for method in ("bicubic", "nearest"):
+            for name, ctrl in (("amplitudes", amps), ("frequencies", freqs)):
+                got = resample_lib.resample(ctrl, t, method=method)
+                ref = resample_lib.resample(ctrl.cpu(), t, method=method)
+                err = max_rel(got, ref)
+                print(f"[small-ops] resample {method} {name} {tuple(ctrl.shape)} -> "
+                      f"{tuple(got.shape)}: max|d|/max card vs CPU {err:.3e} (limit "
+                      f"{'0' if method == 'nearest' else '1e-6'})")
+                require(err <= (0.0 if method == "nearest" else 1e-6),
+                        f"resample {method} disagrees")
+
+        x = torch.from_numpy(eval_golden()["x"])
+        loud = features_lib.get_loudness(x.to(dev), cfg.cqt_hop_length).cpu().numpy()
+        loud_cpu = features_lib.get_loudness(x, cfg.cqt_hop_length).numpy()
+    rtol, atol = LOUDNESS_TOL
+    err = float(np.abs(loud - loud_cpu).max())
+    print(f"[small-ops] get_loudness of {len(x)} clips {loud.shape}: max|d| card vs CPU "
+          f"{err:.3e} (rtol {rtol}, atol {atol}); range [{loud.min():.4f}, {loud.max():.4f}]")
+    require(np.allclose(loud, loud_cpu, rtol=rtol, atol=atol), "get_loudness disagrees")
+
+
 def main() -> int:
-    import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab-parent", metavar="PATH", nargs="+", default=[],
                         help="other plane.cu, merge.cu or refgrad.cu sources (e.g. an earlier "
@@ -3597,6 +4050,8 @@ def main() -> int:
                        "train-golden-512")
     check_eval_512(cfg512, dev)
     check_eval_2048(cfg, dev)
+    check_small_ops(dev)
+    check_figures(dev)
     check_train_golden(cfg, dev, GOLDEN_GATED, GOLDEN, (GRAD_LIMITS_GATED, LEAF_COSINE_GATED),
                        "train-golden-gated", GATED)
 
@@ -3636,6 +4091,7 @@ def main() -> int:
         ("SOT-512 auto", cfg512, "auto", common + ("merge_coupling", "sot_plane_backward"))))
     check_train_run(dev, x_all=x_all)
     check_profile_cli(dev)
+    check_paper_table(dev)
     # each kernel's count from the run whose main path it is on (kernel 4 at
     # [1024, 257]: SOT-512 auto; kernels 6 and 7 at each loss shape: SOT-2048
     # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258];

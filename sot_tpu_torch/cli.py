@@ -22,8 +22,10 @@ Lightning checkpoint (``models/import_torch.py``), told apart by content.
 (``trainer.predict``). ``train
 --profile`` first traces a few warmed-up train steps (on the GPU, replays
 of the step's CUDA graph) into ``<out>/trace`` and prints the device-time
-table (``training/profiling.py``); ``train --figures`` is not ported
-(ROADMAP A7).
+table (``training/profiling.py``); ``train --figures`` draws the figure
+gallery of each evaluation into ``<out>/figures/step<N>/``
+(``training/observability.py``; needs matplotlib). The paper table over
+many runs is ``python -m sot_tpu_torch.eval_paper``.
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ import os
 import sys
 
 from sot_tpu_torch.configs import EXPERIMENTS, PAPER_SEEDS, get_experiment
-
-NOT_PORTED = "is not ported yet (ROADMAP A7)"
 
 
 def _save_resolved_config(cfg, out_dir: str) -> None:
@@ -196,8 +196,6 @@ def cmd_train(args: argparse.Namespace) -> int:
     from sot_tpu_torch.kernel_gates import resolve_gates
     from sot_tpu_torch.training.trainer import build_modules, evaluate, make_eval_step, train
 
-    if args.figures:
-        raise NotImplementedError(f"train --figures (the figure gallery) {NOT_PORTED}")
     overrides = {}
     if args.config:
         file_overrides = _load_config_files(args.config)
@@ -231,7 +229,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     mod, _, best = train(cfg, max_steps=args.steps,
                          checkpoint_dir=os.path.join(out, "checkpoints"),
                          log_file=os.path.join(out, "log.jsonl"), splits=splits,
-                         resume_from=args.resume, device=device, kernels=args.kernels)
+                         resume_from=args.resume, figure_dir=out if args.figures else None,
+                         device=device, kernels=args.kernels)
     with open(os.path.join(out, "best_metrics.json"), "w") as fh:
         json.dump(best, fh, indent=2)
     print(json.dumps({"best_val_metrics": best}))
@@ -408,7 +407,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--kernels", default="default", choices=("default", "auto"),
                    help="the port's kernel-gate preset (kernel_gates.PRESETS): 'auto' the "
                         "merge-coupling SOT routes, 'default' the banded plane")
-    t.add_argument("--figures", action="store_true", help=f"the figure gallery {NOT_PORTED}")
+    t.add_argument("--figures", action="store_true",
+                   help="write spectrum/probability figures each eval epoch (needs matplotlib)")
     t.add_argument("--profile", action="store_true",
                    help="first trace 5 warmed-up train steps into <out>/trace and print the "
                         "device-time table (on the GPU, replays of the step's CUDA graph)")

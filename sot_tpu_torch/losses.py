@@ -11,12 +11,16 @@ and the multi-scale spectral loss.
     path), anything else the general sorting path.
   * ``MSSLoss`` — L1/L2 over linear and/or safe-log magnitudes at several
     FFT sizes (hann, 75% overlap).
+  * ``MeanDifference`` (L1/L2, optionally of the sorted rows), ``KL``
+    (between row-normalised spectra), ``Wasserstein1DWithTransform`` (its
+    own STFT, then ``Wasserstein1D`` on rfft positions over their max) and
+    ``MixOfLosses`` ({loss name: weighted value}).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +43,41 @@ def mean_difference(target: torch.Tensor, value: torch.Tensor, loss_type: str = 
     if loss_type == "L2":
         return torch.mean(difference ** 2 * w)
     raise ValueError(f'Loss type ({loss_type}), must be "L1", "L2"')
+
+
+@dataclasses.dataclass(frozen=True)
+class MeanDifference:
+    loss_type: str = "L1"
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None, sort: bool = False,
+                 **_kw) -> torch.Tensor:
+        if sort:
+            x = torch.sort(x, dim=-1).values
+            y = torch.sort(y, dim=-1).values
+        return mean_difference(x, y, loss_type=self.loss_type, weights=weights)
+
+
+@dataclasses.dataclass(frozen=True)
+class KL:
+    """Mean over rows of KL(input || target) between the row-normalised
+    spectra (``reverse`` swaps them), each log taken at value + eps."""
+
+    eps: float = 1e-10
+    reverse: bool = False
+
+    def __call__(self, input: torch.Tensor, target: torch.Tensor, **_kw) -> torch.Tensor:
+        original_shape = input.shape[:-1]
+        if input.ndim == 3:
+            input = input.reshape(-1, input.shape[-1])
+        if target.ndim == 3:
+            target = target.reshape(-1, target.shape[-1])
+        if self.reverse:
+            input, target = target, input
+        input = safe_divide(input, torch.sum(input, dim=-1, keepdim=True))
+        target = safe_divide(target, torch.sum(target, dim=-1, keepdim=True))
+        kl = input * (torch.log(input + self.eps) - torch.log(target + self.eps))
+        return torch.mean(torch.sum(kl, dim=-1).reshape(original_shape))
 
 
 def _positions(pos, like: torch.Tensor) -> torch.Tensor:
@@ -161,3 +200,40 @@ class MSSLoss:
                 loss = loss + self.logmag_weight * mean_difference(
                     safe_log(target_mag), safe_log(value_mag), self.loss_type)
         return loss
+
+
+@dataclasses.dataclass(frozen=True)
+class Wasserstein1DWithTransform:
+    """``wasserstein`` on the magnitude STFTs of both signals (its own
+    n_fft, hop and window), at the rfft frequencies over their max."""
+
+    wasserstein: Wasserstein1D
+    n_fft: int = 512
+    hop_length: int = 128
+    sample_rate: int = 16000
+    window: Optional[str] = None
+
+    name = "Wasserstein1DWithTransform"
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, **kw) -> torch.Tensor:
+        overlap = 1.0 - self.hop_length / self.n_fft
+        sx = stft_magnitude(x, size=self.n_fft, overlap=overlap, window=self.window)
+        sy = stft_magnitude(y, size=self.n_fft, overlap=overlap, window=self.window)
+        freqs = np.fft.rfftfreq(self.n_fft, d=1.0 / self.sample_rate).astype(np.float32)
+        pos = freqs / freqs.max()  # one numpy grid: the same-grid path
+        kw.pop("x_pos", None)
+        kw.pop("y_pos", None)
+        return self.wasserstein(sx, sy, x_pos=pos, y_pos=pos, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixOfLosses:
+    """Each loss of ``losses`` on the same inputs times its weight, keyed by
+    the loss's class name."""
+
+    losses: Tuple[object, ...]
+    weights: Tuple[float, ...]
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, **kw) -> Dict[str, torch.Tensor]:
+        return {type(fn).__name__: fn(x, y, **kw) * weight
+                for fn, weight in zip(self.losses, self.weights)}

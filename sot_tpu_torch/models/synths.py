@@ -7,8 +7,12 @@ The decoder has no parameters. Controls -> signal:
   get_signal:   hann-OLA amplitude envelopes, bilinear frequency envelopes,
                 oscillator bank — all through ``ops.kernels.synth.synth_render``
                 (the CUDA kernel on the card, the plain PyTorch version on
-                the CPU); with ``apply_roll_off``, the -6 dB/octave roll-off
-                FIR above 500 Hz after it (``ops/fir.py``, MSS-LogLin)
+                the CPU) where the JAX package takes its fused synth kernel:
+                ``amp_resample_method="window"`` without
+                ``use_angular_cumsum``; any other setting takes ``resample``
+                and ``oscillator_bank``; with ``apply_roll_off``, the
+                -6 dB/octave roll-off FIR above 500 Hz after it
+                (``ops/fir.py``, MSS-LogLin)
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from sot_tpu_torch.device import device_constant
 from sot_tpu_torch.ops.fir import frequency_filter, slope_frequency_response
 from sot_tpu_torch.ops.kernels.synth import synth_render
 from sot_tpu_torch.ops.numerics import get_fn_by_name
-from sot_tpu_torch.ops.oscillator import get_harmonic_frequencies, remove_above_nyquist
+from sot_tpu_torch.ops.oscillator import (get_harmonic_frequencies, oscillator_bank,
+                                          remove_above_nyquist)
+from sot_tpu_torch.ops.resample import resample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +42,11 @@ class Sinusoidal:
     n_samples: int = 64000
     sample_rate: int = 16000
     amp_scale_fn: Optional[Union[str, Callable]] = "exp_sigmoid"
+    amp_resample_method: str = "window"
     freq_scale_fn: Optional[Union[str, Callable]] = "frequencies_softmax"
     harmonic: bool = False
     apply_roll_off: bool = False
+    use_angular_cumsum: bool = False
 
     def get_controls(self, amplitudes: torch.Tensor,
                      frequencies: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -57,8 +65,15 @@ class Sinusoidal:
     def get_signal(self, amplitudes: torch.Tensor,
                    frequencies: torch.Tensor) -> torch.Tensor:
         """Frame-rate controls -> [batch, n_samples] audio."""
-        signal = synth_render(amplitudes.contiguous(), frequencies.contiguous(),
-                              self.n_samples, self.sample_rate)
+        if self.amp_resample_method == "window" and not self.use_angular_cumsum:
+            signal = synth_render(amplitudes.contiguous(), frequencies.contiguous(),
+                                  self.n_samples, self.sample_rate)
+        else:
+            signal = oscillator_bank(
+                resample(frequencies, self.n_samples),
+                resample(amplitudes, self.n_samples, method=self.amp_resample_method,
+                         add_endpoint=True),
+                sample_rate=self.sample_rate, use_angular_cumsum=self.use_angular_cumsum)
         if self.apply_roll_off:
             # -6 dB/octave above 500 Hz (the MSS-LogLin experiment)
             filter_mag = device_constant(

@@ -42,8 +42,17 @@ def safe_log10(x: Number, eps: float = 1e-5) -> torch.Tensor:
     return torch.log10(torch.where(x <= eps, torch.full_like(x, eps), x))
 
 
-def logb(x: Number, base: float = 2.0) -> torch.Tensor:
-    return torch.log(_f32(x)) / math.log(base)
+def logb(x: Number, base: float = 2.0, safe: bool = False) -> torch.Tensor:
+    x = _f32(x)
+    if safe:
+        return safe_divide(safe_log(x), math.log(base))
+    return torch.log(x) / math.log(base)
+
+
+def log10(x: Number) -> torch.Tensor:
+    """Safe log base 10: ``safe_log`` over log(10), through ``safe_divide``
+    as the JAX package takes it."""
+    return logb(x, base=10.0, safe=True)
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +130,15 @@ def frequencies_softmax(freqs: torch.Tensor, depth: int = 64, hz_min: float = 20
     unit_bins = torch.linspace(0.0, 1.0, depth, device=freqs.device)
     f_unit = torch.sum(unit_bins * f_probs, dim=-1)
     return unit_to_hz(f_unit, hz_min=hz_min, hz_max=hz_max)
+
+
+def power_to_db(power: Number, ref_db: float = 0.0, range_db: float = 80.0) -> torch.Tensor:
+    """Linear power -> dB with a dynamic-range floor: power clamped below at
+    10^(-range_db / 10), 10 * ``log10``, minus ``ref_db``, clamped below at
+    -range_db."""
+    power = torch.clamp(_f32(power), min=10.0 ** -(range_db / 10.0))
+    db = 10.0 * log10(power) - ref_db
+    return torch.clamp(db, min=-range_db)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,20 @@
 """Frame-rate -> sample-rate control upsampling (``sot_tpu/ops/resample.py``).
 
-Two methods, used by the synth:
+Methods, as the synth uses them:
   * 'window'   — hann overlap-add upsampling for amplitude envelopes: with
                  50% overlapping windows the OLA is one reshape + one add.
   * 'bilinear' — ``F.interpolate`` parity (align_corners = not add_endpoint)
                  for frequency envelopes.
+  * 'bicubic'  — ``F.interpolate`` parity (Keys, a = -0.75, edge taps
+                 clamped), as one constant [n_timesteps, n_frames] matrix
+                 built in float64 and applied in f32.
+  * 'nearest'  — the JAX package's truncating index floor(t * n_frames /
+                 n_timesteps), not torch's 'nearest' mode.
 
-Both keep the reference's exact expressions — ``a_{j+1}*w_rise + a_j*w_fall``
-and ``x_lo + frac*(x_hi - x_lo)`` with ``frac`` computed in float64 on the
-host — because the synth kernel must reproduce these envelopes bit for bit
-(PERF.md, "The synth-kernel lesson"). 'bicubic' and 'nearest' are not
-ported yet (ROADMAP).
+'window' and 'bilinear' keep the reference's exact expressions —
+``a_{j+1}*w_rise + a_j*w_fall`` and ``x_lo + frac*(x_hi - x_lo)`` with
+``frac`` computed in float64 on the host — because the synth kernel must
+reproduce these envelopes bit for bit (PERF.md, "The synth-kernel lesson").
 """
 
 from __future__ import annotations
@@ -89,6 +93,52 @@ def _interp_linear(inputs: torch.Tensor, n_timesteps: int,
     return x_lo + frac_t * (x_hi - x_lo)
 
 
+def _cubic_kernel(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """Keys cubic convolution weights, torch's a = -0.75 variant."""
+    at = np.abs(t)
+    w1 = (a + 2.0) * at ** 3 - (a + 3.0) * at ** 2 + 1.0          # |t| <= 1
+    w2 = a * at ** 3 - 5.0 * a * at ** 2 + 8.0 * a * at - 4.0 * a  # 1 < |t| < 2
+    return np.where(at <= 1.0, w1, np.where(at < 2.0, w2, 0.0))
+
+
+def cubic_matrix(n_frames: int, n_timesteps: int, align_corners: bool) -> np.ndarray:
+    """The [n_timesteps, n_frames] float64 matrix of 1D bicubic
+    interpolation: the source coordinate is not clamped, each of the 4 taps
+    clamps its index to [0, n_frames - 1] (edge replication)."""
+    if align_corners and n_frames > 1:
+        coords = np.linspace(0.0, n_frames - 1, n_timesteps, dtype=np.float64)
+    elif align_corners:
+        coords = np.zeros(n_timesteps, dtype=np.float64)
+    else:
+        scale = n_frames / n_timesteps
+        coords = (np.arange(n_timesteps, dtype=np.float64) + 0.5) * scale - 0.5
+    lo = np.floor(coords).astype(np.int64)
+    frac = coords - lo
+    mat = np.zeros((n_timesteps, n_frames), dtype=np.float64)
+    for k in range(-1, 3):
+        np.add.at(mat, (np.arange(n_timesteps), np.clip(lo + k, 0, n_frames - 1)),
+                  _cubic_kernel(frac - k))
+    return mat
+
+
+def _interp_cubic(inputs: torch.Tensor, n_timesteps: int,
+                  align_corners: bool) -> torch.Tensor:
+    """1D bicubic interpolation along axis 1: ``cubic_matrix`` rounded once
+    to f32, made on the device once per shape, applied as one matmul."""
+    n_frames = inputs.shape[1]
+    mat = device_constant(cubic_matrix(n_frames, n_timesteps, align_corners).astype(np.float32),
+                          inputs.device, key=("cubic", n_frames, n_timesteps, align_corners))
+    return torch.einsum("tf,bfc->btc", mat, inputs)
+
+
+def _interp_nearest(inputs: torch.Tensor, n_timesteps: int) -> torch.Tensor:
+    """Sample t takes frame floor(t * n_frames / n_timesteps) (clipped)."""
+    n_frames = inputs.shape[1]
+    scale = n_frames / n_timesteps
+    idx = np.minimum((np.arange(n_timesteps) * scale).astype(np.int64), n_frames - 1)
+    return inputs[:, device_constant(idx, inputs.device), :]
+
+
 def resample(inputs: torch.Tensor, n_timesteps: int, method: str = "bilinear",
              add_endpoint: bool = True) -> torch.Tensor:
     """Resample framewise controls to n_timesteps.
@@ -107,9 +157,10 @@ def resample(inputs: torch.Tensor, n_timesteps: int, method: str = "bilinear",
         outputs = upsample_with_windows(inputs, n_timesteps, add_endpoint)
     elif method == "bilinear":
         outputs = _interp_linear(inputs, n_timesteps, align_corners=not add_endpoint)
-    elif method in ("bicubic", "nearest"):
-        raise NotImplementedError(
-            f"resample method {method!r} is not ported yet (ROADMAP)")
+    elif method == "bicubic":
+        outputs = _interp_cubic(inputs, n_timesteps, align_corners=not add_endpoint)
+    elif method == "nearest":
+        outputs = _interp_nearest(inputs, n_timesteps)
     else:
         raise ValueError(
             f"Method ({method}) is invalid. Must be one of "

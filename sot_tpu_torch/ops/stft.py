@@ -13,9 +13,11 @@ package writes out as a custom VJP (the same sums). With ``frontend`` (the
 framing, window and DFT run fused in kernel B9 (``ops/kernels/stft.py``)
 wherever the JAX package's conditions hold; with ``dft_matmul``
 (``SOT_TPU_DFT_MATMUL``) the |rfft| of the windowed frames is one f32
-matmul against the real-DFT matrix for n_fft <= 4096. ``center=True`` is the
-loudness path, which is not ported yet: it raises. Output is time-major
-[batch, frames, n_fft // 2 + 1].
+matmul against the real-DFT matrix for n_fft <= 4096. ``center=True`` (the
+loudness path, torch.stft's centre semantics) end-pads first when
+``pad_end`` is also set, then reflect-pads n_fft // 2 on each side and
+frames without end padding; it never goes to kernel B9, as in the JAX
+package. Output is time-major [batch, frames, n_fft // 2 + 1].
 """
 
 from __future__ import annotations
@@ -112,10 +114,6 @@ def stft_magnitude(
     (``sot_tpu/ops/stft.py:206-222``); else ``dft_matmul`` computes the
     |rfft| of the windowed frames as one matmul for ``size`` <= 4096.
     """
-    if center:
-        raise NotImplementedError(
-            "stft_magnitude(center=True) is the loudness path, which is not "
-            "ported yet (ROADMAP)")
     audio = audio.to(torch.float32)
     squeeze = audio.ndim == 1
     if squeeze:
@@ -127,6 +125,15 @@ def stft_magnitude(
         win = np.ones(size, np.float32) if window == "ones" else get_window(window, size)
     else:
         win = window
+    if center:
+        # end padding first when both flags are set, then the centre reflect
+        if pad_end:
+            pad = pad_for_stft_length(audio.shape[-1], size, hop_length)
+            if pad:
+                audio = torch.nn.functional.pad(audio, (0, pad))
+        half = size // 2
+        audio = torch.nn.functional.pad(audio, (half, half), mode="reflect")
+        pad_end = False
     if (frontend and audio.ndim == 2 and isinstance(win, np.ndarray)
             and frontend_applicable(size, hop_length, audio.shape[-1], pad_end, center)):
         proj = stft_frontend_projection(audio, size, hop_length, win)

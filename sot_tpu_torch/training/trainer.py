@@ -22,6 +22,8 @@
     mode, their mean over batches (on the GPU one graph replayed per batch,
     the JAX package's scanned evaluation), on the pitch as the config's eval
     corrections leave it
+  * ``make_viz_step`` — the arrays of the figure gallery for one batch
+    (``training/observability.py``), eager under ``inference_mode``
   * ``apply_octave_correction`` / ``apply_comb_correction`` — the
     unsupervised pitch corrections with the config's thresholds
   * ``predict`` / ``PredictGraph`` — the deployment inference entry: on
@@ -30,7 +32,8 @@
   * ``train`` — the training run: epochs of shuffled batches from the
     device-resident train split, periodic evaluation on the val split,
     the init-probe restarts, the best-LSD snapshot, checkpoints
-    (``checkpoint.py``) and JSONL records (``logging.py``)
+    (``checkpoint.py``), JSONL records (``logging.py``) and the figure
+    gallery of each evaluation (``observability.py``)
 
 Parameters live in ``mod.encoder``; the optimizer, scheduler, dropout
 generator and step count in ``TrainState``. ``mod.kernels`` (a
@@ -63,6 +66,7 @@ from sot_tpu_torch.ops.kernels import launches as launches_lib
 from sot_tpu_torch.ops.numerics import get_cqt_n_bins, hz_to_unit, unit_to_hz
 from sot_tpu_torch.training import checkpoint as ckpt_lib
 from sot_tpu_torch.training.logging import JsonlLogger
+from sot_tpu_torch.training.observability import FigureLogger
 
 
 @dataclasses.dataclass
@@ -554,6 +558,48 @@ def train_steps_graph(mod: Modules, state: TrainState, x_all: torch.Tensor,
     return graph(offsets)
 
 
+def make_viz_step(mod: Modules) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """x [batch, n_samples] -> the arrays the figure gallery draws: x,
+    x_hat, spec_x, spec_x_hat, pitch_hz and the pitch probabilities of each
+    clip's first frame (softmax of the frequency logits over the config's
+    temperature). ``compute_loss`` in eval mode, run eagerly under
+    ``inference_mode`` (on the GPU too: a figure is host work once per
+    evaluation, outside the step's graph)."""
+    def viz_step(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            _, (_, out) = compute_loss(mod, x, train=False)
+            probs = torch.softmax(out["frequency_logits"] / mod.config.temperature, dim=-1)
+            return {"x": x, "x_hat": out["x_hat"], "spec_x": out["spec_x"],
+                    "spec_x_hat": out["spec_x_hat"], "probabilities": probs[:, 0],
+                    "pitch_hz": out["pitch_hz"]}
+
+    return viz_step
+
+
+def log_figures(mod: Modules, fig_logger: Any, viz_step: Callable, step: int,
+                batch: Dict[str, np.ndarray]) -> None:
+    """The gallery of one evaluation from ``batch`` (the val split's first):
+    ``viz_step``'s arrays copied to the host once, ``plot_and_log``, and the
+    quantile-function figure of the first clip's spectra from the config's
+    ``Wasserstein1D`` (``return_quantiles``: the general sorting path, never
+    the training route)."""
+    outs = {k: v.cpu().numpy() for k, v in viz_step(torch.as_tensor(
+        np.asarray(batch["x"], np.float32), device=mod.device)).items()}
+    outs["true_frequency_unit"] = hz_to_unit(batch["frequency"][:1, 0], mod.freq_hz_min,
+                                             mod.freq_hz_max).numpy()
+    trans_freqs = (None if isinstance(mod.transform, Identity)
+                   else mod.transform.get_frequencies())
+    fig_logger.plot_and_log(step, "val", outs, transform_frequencies=trans_freqs,
+                            feature_frequencies=mod.feature_extractor.get_frequencies())
+    w1d = next((fn for _, fn, _ in mod.loss_fns if type(fn).__name__ == "Wasserstein1D"), None)
+    if w1d is not None and mod.x_pos is not None:
+        with torch.inference_mode():
+            q = w1d(torch.from_numpy(outs["spec_x"][:1]).to(mod.device),
+                    torch.from_numpy(outs["spec_x_hat"][:1]).to(mod.device),
+                    x_pos=mod.x_pos, y_pos=mod.x_pos, return_quantiles=True)
+        fig_logger.log_quantiles(step, "val", *(q[i].cpu().numpy() for i in (2, 0, 1)))
+
+
 def correction_kwargs(mod: Modules) -> Dict[str, Any]:
     """The pitch corrections' arguments from the config, as the JAX
     package's ``apply_*_correction`` pass them, and the STFT gate."""
@@ -875,13 +921,13 @@ def train(
     masks by ``fold_in(rng, step)``; doing that here would reseed from the
     host every step, which a captured graph cannot do.
 
-    ``log_every`` is accepted for the JAX package's signature and unused, as
-    there. ``figure_dir`` (the figure gallery) is not ported: it raises.
+    With ``figure_dir``, each evaluation also draws the figure gallery of
+    the val split's first batch under ``<figure_dir>/figures/step<N>/``
+    (``log_figures``; it needs matplotlib and raises at the start without
+    it). ``log_every`` is accepted for the JAX package's signature and
+    unused, as there.
     """
-    if figure_dir is not None:
-        raise NotImplementedError(
-            "train(figure_dir=...): the figure gallery (training/observability.py) is not "
-            "ported yet (ROADMAP A7)")
+    fig_logger = FigureLogger(figure_dir)
     max_steps = max_steps or cfg.max_steps
     mod = build_modules(cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed),
                         kernels=kernels)
@@ -895,6 +941,7 @@ def train(
 
     eval_step = make_eval_step(mod)
     eval_all = make_eval_all(mod)
+    viz_step = make_viz_step(mod) if fig_logger.enabled else None
     bs = cfg.batch_size
 
     def device_tensor(a: np.ndarray) -> torch.Tensor:
@@ -981,6 +1028,8 @@ def train(
                 eval_bucket = step // cfg.eval_every_steps
                 val = run_eval()
                 logger.write({"split": "val", "step": step, **val})
+                if viz_step is not None:
+                    log_figures(mod, fig_logger, viz_step, step, val_batches[0])
                 lsd = val.get("log_spectral_distance", float("inf"))
                 if lsd < best_lsd:
                     best_lsd = lsd

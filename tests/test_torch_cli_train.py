@@ -191,12 +191,6 @@ def test_generate_data_writes_jax_keys_and_draws(tmp_path, capsys):
         np.testing.assert_array_equal(a["weights"], b["weights"])
 
 
-@pytest.mark.parametrize("flag", ["--figures"])
-def test_unported_train_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        cli.main(["train", flag, "--out", str(tmp_path)] + TINY + CPU)
-
-
 def test_train_without_device_or_cuda_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

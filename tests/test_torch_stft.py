@@ -85,11 +85,6 @@ def test_stft_options_match(normalized, time_major, pad_end):
     assert rel_max_err(got, ref) <= 1e-5
 
 
-def test_center_is_the_unported_loudness_path():
-    with pytest.raises(NotImplementedError, match="loudness"):
-        tstft.stft_magnitude(torch.zeros(1, 1024), size=256, center=True)
-
-
 @pytest.mark.parametrize("t,frame,hop", [(4096, 2048, 256), (4096, 64, 16), (3000, 512, 128),
                                          (100, 256, 64)])
 def test_framing_matches(t, frame, hop):
