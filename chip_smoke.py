@@ -5,7 +5,9 @@ and evaluation, SOT-2048 evaluation with the pitch corrections, the
 training run through the CLI (train, resume, evaluate, predict, probes,
 MSS-LogLin's roll-off, --profile, --figures), the paper table
 (eval_paper) over the seven families, the remaining library ops (angular
-phase, bicubic/nearest resampling, loudness), the gated train step (the ``full`` merge
+phase, bicubic/nearest resampling, loudness), the multi-rank train step
+(sot_tpu_torch/parallel: one rank over NCCL, two over Gloo on the one
+card), the gated train step (the ``full`` merge
 route, the STFT frontend and the conv kernels: ``KernelGates(
 w2_merge="full", conv=True, stft_frontend=True)``), the train step and
 the evaluation as CUDA graphs, and the served model as a CUDA graph.
@@ -266,6 +268,28 @@ Phases (any failure raises and the script exits non-zero):
                the CSV equal to format_paper_table of the JSON rows, each run
                in its own family's row only (SOT-2048 n = 2, [n=2]), the
                JAX-style run named and left out
+ 11c. parallel — sot_tpu_torch/parallel through dryrun.run at full width
+               (SOT-2048 auto, global batch 64 of the train split): one
+               rank over NCCL in this process, 4 sharded steps bit-equal
+               to 4 single-device train_steps under cudnn.deterministic
+               (parameters, Adam, the generator, the logs), kernels 1-5
+               launched 4 times each in the sharded steps and no other;
+               host-clock ms per step of windows of 32, sharded and
+               single-device in turns, the gradient mean's ms (CUDA
+               events) and each step's busy ms in a profile (information);
+               then two ranks spawned on the one card over Gloo with CUDA
+               tensors: meshes (2, 1) and (1, 2), 2 steps each, from the
+               same parameters as the single-device step (loss rel 1e-4)
+               and the ranks' mean gradient computed in one process (the
+               reduced gradient and grad_norm within 1e-4 of it; the
+               distance to the single-device gradient printed), the
+               ranks' parameters and gradients bit-equal after
+               every step, kernels 1-5 launched once a step on rank 0 and
+               no other, and the frame-sharded STFT, the freq-sharded W,
+               the row-sharded W on auto's kernels 4 + 5 (value and
+               cotangent, bit-equal to one device) and the sample-sharded
+               synth against their single-device ops (the worst over the
+               ranks)
 
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations, device times torch.profiler; a [profile] line sums the
@@ -3981,6 +4005,98 @@ def check_small_ops(dev) -> None:
     require(np.allclose(loud, loud_cpu, rtol=rtol, atol=atol), "get_loudness disagrees")
 
 
+PARALLEL_STEPS = 4       # [parallel]: one-rank NCCL steps held bit-equal to single-device steps
+PARALLEL_2_STEPS = 2     # [parallel]: steps of each 2-rank mesh on the one card
+PARALLEL_WINDOW = 32     # [parallel]: the steps of each host-clock window
+AUTO_KERNELS = ("cqt_project", "synth_render", "synth_backward", "merge_coupling",
+                "ref_grad_beta")
+
+
+def check_parallel(cfg, dev, x_all) -> None:
+    """[parallel] sot_tpu_torch/parallel through dryrun.run at full width
+    (SOT-2048 auto, global batch 64 of the train split): one rank over NCCL
+    in this process, PARALLEL_STEPS sharded steps bit-equal to as many
+    single-device train_steps under cudnn.deterministic, kernels 1-5 each
+    launched once a sharded step and no other; then two ranks on the one
+    card (spawned, Gloo over CUDA tensors): meshes (2, 1) and (1, 2), each
+    step's loss within the dry run's limit of the single-device step, its
+    reduced gradient and grad_norm within the dry run's limit of the ranks'
+    mean computed in one process, the ranks' parameters and gradients
+    bit-equal, kernels 1-5 launched once a step on rank 0, and the four
+    sharded ops against their single-device ops (the row-sharded solve
+    bit-equal). Host-clock windows of the one-rank step beside the
+    single-device step (information only)."""
+    from sot_tpu_torch.parallel import dryrun
+
+    batches = x_all[:PARALLEL_STEPS * BATCH].reshape(PARALLEL_STEPS, BATCH, -1).cpu().numpy()
+    card = card_line()
+    t0 = time.perf_counter()
+    one = dryrun.run(1, device=dev, cfg=cfg, batches=batches, deterministic=True,
+                     timing=PARALLEL_WINDOW)
+    seconds = time.perf_counter() - t0
+    (mesh,) = one["meshes"]
+    require(one["backend"] == "nccl" and mesh["mesh"] == {"data": 1, "freq": 1},
+            f"[parallel] one rank ran {one['backend']} on {mesh['mesh']}")
+    require(len(mesh["steps"]) == PARALLEL_STEPS and all(s["bit_equal"] for s in mesh["steps"]),
+            "[parallel] the one-rank step is not bit-equal to the single-device step")
+    want = {k: PARALLEL_STEPS if k in AUTO_KERNELS else 0 for k in mesh["launches"]}
+    require(mesh["launches"] == want,
+            f"[parallel] launches of the {PARALLEL_STEPS} sharded steps {mesh['launches']}, "
+            f"expected {want}")
+    print(f"[parallel] 1 rank (nccl, {one['device']}), SOT-2048 auto at batch {BATCH}: "
+          f"{PARALLEL_STEPS} sharded steps bit-equal to {PARALLEL_STEPS} train_steps under "
+          f"cudnn.deterministic (parameters, Adam, generator, logs); losses "
+          f"{[round(s['loss'], 6) for s in mesh['steps']]}; launches {mesh['launches']} "
+          f"({seconds:.1f} s)")
+    timing = one["timing"]
+    ms = timing["ms_per_step"]
+    print(f"[parallel] host-clock ms per step over windows of {PARALLEL_WINDOW} (sharded, single, "
+          f"single, sharded; default cuDNN): sharded {', '.join(f'{v:.3f}' for v in ms['sharded'])}"
+          f"; single-device eager {', '.join(f'{v:.3f}' for v in ms['single'])} | {card}")
+    nccl = timing["profile_nccl_ms"]
+    nccl = "none (an in-place all-reduce on one rank launches none)" if nccl is None else nccl
+    print(f"[parallel] gradient mean (flatten, all-reduce, divide, copy back) of "
+          f"{timing['grad_bytes']} bytes: {timing['allreduce_event_ms']:.4f} ms (CUDA events, 20 "
+          f"calls); busy ms of one profiled step, in turns {timing['profile_busy_ms']}, NCCL "
+          f"kernels {nccl} {timing['profile_nccl_kernels']}; the kernels the sharded step adds most, mean ms "
+          f"{timing['profile_largest_extra_ms']} | {card}")
+
+    t0 = time.perf_counter()
+    two = dryrun.run(2, device=dev, backend="gloo", cfg=cfg, batches=batches[:PARALLEL_2_STEPS])
+    seconds = time.perf_counter() - t0
+    require([m["mesh"] for m in two["meshes"]] == [{"data": 2, "freq": 1}, {"data": 1, "freq": 2}],
+            f"[parallel] two ranks ran the meshes {[m['mesh'] for m in two['meshes']]}")
+    want = {k: PARALLEL_2_STEPS if k in AUTO_KERNELS else 0 for k in two["meshes"][0]["launches"]}
+    for m in two["meshes"]:
+        require(len(m["steps"]) == PARALLEL_2_STEPS
+                and all(s["ranks_bit_equal"] for s in m["steps"]),
+                f"[parallel] mesh {m['mesh']}: the ranks' parameters or gradients differ")
+        require(m["launches"] == want, f"[parallel] mesh {m['mesh']}: rank 0's launches "
+                                       f"{m['launches']}, expected {want}")
+        steps = m["steps"]
+        print(f"[parallel] 2 ranks (gloo over CUDA tensors, one card), mesh {m['mesh']}: "
+              f"{len(steps)} steps, each from the same parameters as the references: loss rel "
+              f"to the single-device step {[f'{s['loss_rel']:.2e}' for s in steps]} (limit "
+              f"{dryrun.LOSS_REL}); reduced gradient max|d| of the max "
+              f"{[f'{s['grad_rel']:.2e}' for s in steps]} and grad_norm rel "
+              f"{[f'{s['grad_norm_rel']:.2e}' for s in steps]} to the ranks' mean computed in "
+              f"one process (limit {dryrun.GRAD_REL}); to the single-device step (read) "
+              f"{[f'{s['single_grad_rel']:.2e}' for s in steps]} and "
+              f"{[f'{s['single_grad_norm_rel']:.2e}' for s in steps]}; parameters after the "
+              f"update max|d| {[f'{s['params_max_abs']:.2e}' for s in steps]} (read); ranks' "
+              f"parameters and gradients bit-equal; rank 0's launches {m['launches']}")
+    ops = two["ops"]
+    require(ops["rows_bit_equal"],
+            "[parallel] the row-sharded solve on auto's kernels 4 + 5 is not bit-equal to one device")
+    print(f"[parallel] 2 ranks, mesh (1, 2): frame-sharded STFT max|d|/max {ops['stft']:.3e} "
+          f"(limit {dryrun.STFT_LIMIT}), freq-sharded W rel {ops['w_rel']:.3e} (limit "
+          f"{dryrun.W_REL}), row-sharded W on auto's kernels 4 + 5 rel {ops['rows_rel']:.3e} and "
+          f"its cotangent {ops['rows_grad_rel']:.3e} of the max (bit-equal to one device, "
+          f"required), sample-sharded synth max|d| "
+          f"{ops['synth_max_abs']:.3e} (limit {dryrun.SYNTH_ATOL}) ({seconds:.1f} s with the "
+          f"spawn)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab-parent", metavar="PATH", nargs="+", default=[],
@@ -4092,6 +4208,7 @@ def main() -> int:
     check_train_run(dev, x_all=x_all)
     check_profile_cli(dev)
     check_paper_table(dev)
+    check_parallel(cfg, dev, x_all)
     # each kernel's count from the run whose main path it is on (kernel 4 at
     # [1024, 257]: SOT-512 auto; kernels 6 and 7 at each loss shape: SOT-2048
     # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258];

@@ -28,7 +28,7 @@ draws its masks from the generator set on ``encoder.dropout.generator``
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,18 +55,32 @@ def _uniform_(p: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]
 class GeneratorDropout(nn.Module):
     """Inverted dropout whose mask comes from ``self.generator`` (a
     ``torch.Generator`` on the input's device, or None for the default one):
-    where(keep, x / (1 - p), 0) in training mode, identity in eval mode."""
+    where(keep, x / (1 - p), 0) in training mode, identity in eval mode.
+
+    ``shard`` = (index, count) says that x is block ``index`` of ``count``
+    equal row blocks of a global batch (a data-parallel rank's rows): the
+    mask is drawn for the global batch, as one process drawing for all of
+    it would, and this block's rows are kept. None (one process) draws for
+    x alone."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, device=x.device, generator=self.generator) < keep
+        if self.shard is None:
+            draw = torch.rand(x.shape, device=x.device, generator=self.generator)
+        else:
+            index, count = self.shard
+            rows = x.shape[0]
+            draw = torch.rand((count * rows,) + tuple(x.shape[1:]), device=x.device,
+                              generator=self.generator)[index * rows:(index + 1) * rows]
+        mask = draw < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

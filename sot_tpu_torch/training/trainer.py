@@ -366,10 +366,14 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
-def train_step(mod: Modules, state: TrainState, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def train_step(mod: Modules, state: TrainState, x: torch.Tensor,
+               reduce_grads: Optional[Callable[[Sequence[torch.Tensor]], None]] = None
+               ) -> Dict[str, torch.Tensor]:
     """One update on batch x [batch, n_samples]: loss in training mode,
     ``backward``, Adam. Returns the logs (device tensors, not synchronised)
-    with ``grad_norm``, the global norm of the raw gradients."""
+    with ``grad_norm``, the global norm of the raw gradients.
+    ``reduce_grads`` (the multi-rank step's all-reduce) rewrites the
+    gradients in place before the norm and the update."""
     cfg = mod.config
     state.optimizer.zero_grad(set_to_none=True)
     loss, (logs, _) = compute_loss(mod, x, train=True,
@@ -377,6 +381,8 @@ def train_step(mod: Modules, state: TrainState, x: torch.Tensor) -> Dict[str, to
                                    prior_scale=prior_scale_at(cfg, state.step))
     loss.backward()
     params = [p for p in mod.encoder.parameters() if p.grad is not None]
+    if reduce_grads is not None:
+        reduce_grads([p.grad for p in params])
     logs = {k: v.detach() for k, v in logs.items()}
     logs["grad_norm"] = global_norm([p.grad for p in params]).detach()
     state.optimizer.step()

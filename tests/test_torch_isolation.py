@@ -39,7 +39,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_sot_tpu():
                 "sot_tpu_torch.ops.kernels.synth", "sot_tpu_torch.cli",
                 "sot_tpu_torch.ops.kernels.plane", "sot_tpu_torch.metrics",
                 "sot_tpu_torch.models.import_torch", "sot_tpu_torch.eval_paper",
-                "sot_tpu_torch.training.observability"):
+                "sot_tpu_torch.training.observability", "sot_tpu_torch.parallel.train",
+                "sot_tpu_torch.parallel.sharded_ops", "sot_tpu_torch.parallel.dryrun"):
         assert mod in res["loaded"]
 
 
