@@ -10,7 +10,8 @@ phase, bicubic/nearest resampling, loudness), the multi-rank train step
 card), the gated train step (the ``full`` merge
 route, the STFT frontend and the conv kernels: ``KernelGates(
 w2_merge="full", conv=True, stft_frontend=True)``), the train step and
-the evaluation as CUDA graphs, and the served model as a CUDA graph.
+the evaluation as CUDA graphs, the served model as a CUDA graph, and the
+kernel adoption (``auto`` from the committed H100 A/Bs and verdicts).
 
     python3 chip_smoke.py [--ab-parent PATH/{plane,merge,refgrad}.cu ...]
 
@@ -286,10 +287,29 @@ Phases (any failure raises and the script exits non-zero):
                ranks' parameters and gradients bit-equal after
                every step, kernels 1-5 launched once a step on rank 0 and
                no other, and the frame-sharded STFT, the freq-sharded W,
-               the row-sharded W on auto's kernels 4 + 5 (value and
+               the row-sharded W on JAX_AUTO's kernels 4 + 5 (value and
                cotangent, bit-equal to one device) and the sample-sharded
                synth against their single-device ops (the worst over the
                ranks)
+
+ 11d. adoption — kernel_gates.auto_gates over sot_tpu_torch/adoption/ (the
+               gates ``auto`` names) printed; every A/B of
+               python -m sot_tpu_torch.gate_ab run again at full shape, its
+               times beside the committed ones (nothing asserted on speed),
+               the parity of each pair held: ref against hybrid (1e-4),
+               kernels 10-11 in 3xTF32 against cuDNN f32 through the
+               encoder (CONV_PARITY_LIMIT), kernel 9 against cuFFT
+               (FRONTEND_LIMIT); where auto is not JAX_AUTO, its route: the
+               predict golden, the train golden with the route's controls,
+               4 eager steps launching exactly the route's kernels, the
+               step's graph against eager steps ([train-graph]) and the
+               served request's graph ([serve-graph])
+
+The phases that hold the port against the JAX package's records run on
+JAX_AUTO (the routes of the JAX package's committed gates: ref above 512
+bins, hybrid at or below), named where earlier they said ``auto``; cli
+train runs there take it as --gate pins. [paper-table] and cli evaluate /
+predict follow ``auto``.
 
 Kernel, plain and library timings use CUDA events on inputs that change
 between iterations, device times torch.profiler; a [profile] line sums the
@@ -320,15 +340,18 @@ import torch
 
 from sot_tpu_torch import cli as cli_lib
 from sot_tpu_torch import data as data_lib
+from sot_tpu_torch import gate_ab
 from sot_tpu_torch import metrics as metrics_lib
+from sot_tpu_torch import train_verdict
 from sot_tpu_torch.configs import get_experiment
 from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat, params_from_flax,
                                    params_to_flax)
+from sot_tpu_torch.device import card_line as device_card_line
 from sot_tpu_torch.device import set_precision_policy
 from sot_tpu_torch.ops.cqt import cqt_bank
 from sot_tpu_torch.ops.kernels import _build
 from sot_tpu_torch.ops.kernels import launches as launches_lib
-from sot_tpu_torch.kernel_gates import PRESETS, KernelGates
+from sot_tpu_torch.kernel_gates import ADOPTION_DIR, PRESETS, KernelGates
 from sot_tpu_torch.ops.kernels import conv as kconv
 from sot_tpu_torch.ops.kernels import cqt as kcqt
 from sot_tpu_torch.ops.kernels import merge as kmerge
@@ -445,6 +468,15 @@ DECISION_REL = 1e-5
 # The gated path: the full merge route (kernels 4 + 8), the STFT frontend
 # (kernel 9), the k > 1 convs on kernels 10 and 11 with bf16 operands
 GATED = KernelGates(w2_merge="full", conv=True, stft_frontend=True)
+# The SOT routes of the JAX package's committed gates (sot_tpu/kernel_gates.py
+# on its TPU A/Bs: ref above 512 bins, kernels 4 + 5; hybrid at or below,
+# kernels 4 + 7). The phases held against JAX's records run on these named
+# gates, so what they check does not move with the port's adoption files;
+# [adoption] drives ``auto`` as kernel_gates.auto_gates resolves it.
+JAX_AUTO = KernelGates(w2_merge="ref", w2_merge_small="hybrid")
+# JAX_AUTO as cli train's flags
+JAX_AUTO_FLAGS = ["--kernels", "default", "--gate", "w2_merge=ref", "--gate",
+                  "w2_merge_small=hybrid"]
 # the sources --ab-parent takes
 AB_SOURCES = ("plane.cu", "merge.cu", "refgrad.cu")
 # kernel 8 against its plain version where it is not bit-equal: max|d|/max
@@ -457,11 +489,20 @@ FRONTEND_LIMIT = 1e-5
 # operands (TF32 off): max|d|/max (exact products, f32 sums in another order)
 CONV_LIMIT = 1e-5
 # The conv-stack gate of the JAX package's shipped recipe (SOT_TPU_CONV_BF16)
-# on the auto routes: 4 SOT-2048 steps on the card, its loss printed
-CONV_BF16 = dataclasses.replace(PRESETS["auto"], conv_bf16=True)
-# auto with the k > 1 convs on kernels 10 and 11 in f32 (3xTF32), against
-# auto's cuDNN f32 convs: an information-only in-step reading
-CONV_F32 = dataclasses.replace(PRESETS["auto"], conv=True, conv_dtype=torch.float32)
+# on the JAX_AUTO routes: 4 SOT-2048 steps on the card, its loss printed
+CONV_BF16 = dataclasses.replace(JAX_AUTO, conv_bf16=True)
+# JAX_AUTO with the k > 1 convs on kernels 10 and 11 in f32 (3xTF32), against
+# cuDNN's f32 convs: an information-only in-step reading
+CONV_F32 = dataclasses.replace(JAX_AUTO, conv=True, conv_dtype=torch.float32)
+# the labels of named gates in printed lines
+GATE_LABELS = {JAX_AUTO: "jax-auto", GATED: "gated", CONV_BF16: "jax-auto+conv_bf16",
+               CONV_F32: "jax-auto+conv f32"}
+
+
+def gates_label(kernels) -> str:
+    if isinstance(kernels, str):
+        return kernels
+    return GATE_LABELS.get(kernels, "auto" if kernels == PRESETS["auto"] else str(kernels))
 # [train-golden-gated]: per leaf against the gated JAX golden, ~1.5x the
 # card's readings (worst leaf 3.006e-01 / 5.261e-02 / 2.900e-01 for W1D /
 # MSS / total, least cosine 0.990001 / 0.999488 / 0.989517). The W1D
@@ -484,10 +525,7 @@ def require(cond: bool, msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return device_card_line("cuda")
 
 
 def roofline(flops: float, bytes_moved: float, peak: float = PEAK_FP32_FLOPS):
@@ -756,10 +794,10 @@ def within_50_cents(pitch_hz: np.ndarray, f0: np.ndarray) -> np.ndarray:
     return cents < 50.0
 
 
-def check_golden(cfg, dev):
+def check_golden(cfg, dev, kernels=JAX_AUTO, phase="golden"):
     with np.load(GOLDEN) as z:
         g = {k: z[k] for k in z.files}
-    mod = build_modules(cfg, device=dev)
+    mod = build_modules(cfg, device=dev, kernels=kernels)
     load_golden_weights(mod)
     out = predict(mod, g["x"])
     pitch = out["pitch_hz"].cpu().numpy()
@@ -772,7 +810,8 @@ def check_golden(cfg, dev):
     w_rel = float(np.max(np.abs(weights - g["weights"])) / np.max(np.abs(g["weights"])))
     share_port = float(within_50_cents(pitch, g["f0"]).mean())
     share_jax = float(within_50_cents(g["pitch_hz"], g["f0"]).mean())
-    print(f"[golden] SOT-2048 seed 42 (step {int(g['step'])}), {g['x'].shape[0]} clips: "
+    print(f"[{phase}] SOT-2048 seed 42 (step {int(g['step'])}), {g['x'].shape[0]} clips, "
+          f"kernels={gates_label(kernels)}: "
           f"pitch_hz max rel diff {p_rel:.3e} (limit 1e-3), weights max|d|/max "
           f"{w_rel:.3e} (limit 1e-3); frames within 50 cents: port {share_port:.6f}, "
           f"JAX CPU {share_jax:.6f}")
@@ -842,8 +881,9 @@ DEVICE_NAMES: dict = {}
 
 def profile_device(what: str, fn, top: int = 12):
     """Device time by kernel for one call of ``fn`` (torch.profiler), and the
-    device's idle share between its first and last kernel. Returns the busy
-    ms (None when the profiler saw no device events)."""
+    device's idle share between its first and last kernel; user annotations
+    are not counted. Returns the busy ms (None when the profiler saw no
+    device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -852,7 +892,9 @@ def profile_device(what: str, fn, top: int = 12):
         torch.cuda.synchronize()
     by_name, spans = {}, []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation (``Optimizer.step#Adam.step``) spans kernels and
+        # the gaps between them: not device work of its own
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
             spans.append((e.time_range.start, e.time_range.end))
@@ -1221,7 +1263,7 @@ def train_golden_gates(g, dev, mod, x, composed, limits, route, encoder):
 
 
 def check_train_golden(cfg, dev, golden=GOLDEN_TRAIN, weights=GOLDEN,
-                       limits=(GRAD_LIMITS, LEAF_COSINE), phase="train-golden", kernels="auto"):
+                       limits=(GRAD_LIMITS, LEAF_COSINE), phase="train-golden", kernels=JAX_AUTO):
     """The train step's gradient on ``dev`` against the JAX CPU golden and
     the port on the CPU (eval mode, the golden's 16 clips): the SOT route's
     kernels on JAX's rows, the loss and its two terms, the gradient of each
@@ -2521,16 +2563,15 @@ def train_dataset(cfg, dev):
     return x_all
 
 
-def train(cfg, dev, x_all, kernels="auto", on=(), window=True, gates_name="gated"):
+def train(cfg, dev, x_all, kernels=JAX_AUTO, on=(), window=True):
     """Train steps at batch 64 from the device-resident dataset: 4 steps
     with their launch counts (each kernel in ``on`` launched, every other
     kernel not), finite loss and grad_norm, changed parameters; with
-    ``window``, 32 more timed steps and a profile of one more.
-    ``gates_name`` names a ``KernelGates`` in the printed label."""
+    ``window``, 32 more timed steps and a profile of one more."""
     base = get_experiment("SOT-2048")
     require(all(getattr(base, f) == getattr(cfg, f) for f in DATA_FIELDS),
             f"{cfg.name} draws another dataset than the one generated")
-    label = f"{cfg.name} kernels={kernels if isinstance(kernels, str) else gates_name}"
+    label = f"{cfg.name} kernels={gates_label(kernels)}"
     mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
                         kernels=kernels)
     state = trainer.init_state(mod)
@@ -2579,19 +2620,19 @@ def train(cfg, dev, x_all, kernels="auto", on=(), window=True, gates_name="gated
 
 def conv_gate_ab(cfg, dev, x_all):
     """Information only (no preset changes): the device busy ms of one
-    SOT-2048 train step under ``auto`` (cuDNN's f32 convs) and under
+    SOT-2048 train step under JAX_AUTO (cuDNN's f32 convs) and under
     CONV_F32 (the k > 1 convs on kernels 10 and 11 in 3xTF32), each model
-    warmed by two steps, profiled in turns (auto, kernels, kernels, auto)."""
+    warmed by two steps, profiled in turns (cuDNN, kernels, kernels, cuDNN)."""
     mods = {}
-    for name, gates in (("auto", "auto"), ("auto + conv kernels f32", CONV_F32)):
+    for name, gates in (("jax-auto", JAX_AUTO), ("jax-auto + conv kernels f32", CONV_F32)):
         mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
                             kernels=gates)
         state = trainer.init_state(mod)
         trainer.train_steps(mod, state, x_all, [0, BATCH])
         mods[name] = (mod, state)
     busy = {name: [] for name in mods}
-    for i, name in enumerate(("auto", "auto + conv kernels f32", "auto + conv kernels f32",
-                              "auto")):
+    for i, name in enumerate(("jax-auto", "jax-auto + conv kernels f32",
+                              "jax-auto + conv kernels f32", "jax-auto")):
         mod, state = mods[name]
         busy[name].append(profile_device(
             f"one SOT-2048 step, {name} (conv gate A/B, turn {i + 1})",
@@ -2610,7 +2651,7 @@ def check_eval_512(cfg, dev):
         split = data_lib.SplitArrays(z["x"], z["f0"], np.zeros((len(z["x"]), 1), np.float32))
     with np.load(GOLDEN_512) as z:
         ref = {k[len("eval/"):]: float(z[k]) for k in z.files if k.startswith("eval/")}
-    mod = build_modules(cfg, device=dev)
+    mod = build_modules(cfg, device=dev, kernels=JAX_AUTO)
     load_golden_weights(mod, GOLDEN_512)
     reset_launches()
     got = trainer.evaluate(mod, trainer.make_eval_step(mod), split, len(split))
@@ -2650,7 +2691,7 @@ def eval_golden():
 def eval_2048_form(cfg, dev, form, g) -> None:
     """[eval-2048] one form: the port's ``evaluate`` with the SOT-2048
     seed-42 weights on the 64 clips against JAX's (``eval_metrics_check``)."""
-    mod = build_modules(cfg.replace(**EVAL_FORMS[form]), device=dev)
+    mod = build_modules(cfg.replace(**EVAL_FORMS[form]), device=dev, kernels=JAX_AUTO)
     load_golden_weights(mod)
     split = data_lib.SplitArrays(g["x"], g["f0"], np.zeros((len(g["x"]), 1), np.float32))
     reset_launches()
@@ -2707,7 +2748,7 @@ def predict_comb_check(cfg, dev, g, kernels) -> None:
                                          margin=cfg.comb_correction_margin,
                                          **trainer.correction_kwargs(mod))
     flips = np.flatnonzero(factor.cpu().numpy() != g["comb/1/factor"]).tolist()
-    name = kernels if isinstance(kernels, str) else "gated"
+    name = gates_label(kernels)
     print(f"[eval-2048] predict with inference_comb_correction, kernels={name}: pitch_hz max rel "
           f"diff from JAX's {rel:.3e}; comb factors on JAX's pitches equal on "
           f"{len(pitch) - len(flips)} of {len(pitch)} clips; launches during predict {launches}")
@@ -2716,7 +2757,7 @@ def predict_comb_check(cfg, dev, g, kernels) -> None:
     require(not flips, f"kernels={name}: comb factors differ from JAX's on clips {flips}")
     if mod.kernels.stft_frontend and dev.type == "cuda":
         require(launches["stft_frontend"] > 0, "the correction's STFT did not launch kernel 9")
-    if mod.kernels == PRESETS["auto"]:
+    if mod.kernels == JAX_AUTO:
         require(rel <= 1e-3, "predict with the comb correction disagrees with JAX")
 
 
@@ -2724,14 +2765,14 @@ def check_eval_2048(cfg, dev) -> None:
     """[eval-2048]: the port's ``evaluate`` with the SOT-2048 seed-42
     weights in every form of EVAL_FORMS against JAX's, both corrections'
     factors and decisions at every pitch shift, and ``predict`` with the
-    comb correction under ``auto`` and GATED."""
+    comb correction under JAX_AUTO and GATED."""
     g = eval_golden()
     for form in EVAL_FORMS:
         eval_2048_form(cfg, dev, form, g)
-    mod = build_modules(cfg, device=dev)
+    mod = build_modules(cfg, device=dev, kernels=JAX_AUTO)
     for shift in CORRECTION_SHIFTS:
         correction_factors_check(mod, g, shift)
-    predict_comb_check(cfg, dev, g, "auto")
+    predict_comb_check(cfg, dev, g, JAX_AUTO)
     predict_comb_check(cfg, dev, g, GATED)
 
 
@@ -2741,7 +2782,7 @@ def check_eval_2048(cfg, dev) -> None:
 
 GRAPH_STEPS = 4          # [train-graph]: replays held against as many eager steps
 GRAPH_WINDOW = 32        # [train-graph]: the steps of each host-clock window
-# the hand-written kernels of SOT-2048's auto route, by their __global__ names
+# the hand-written kernels of SOT-2048's JAX_AUTO route, by their __global__ names
 AUTO_KERNEL_NAMES = ("cqt_tile_kernel", "synth_fwd_kernel", "synth_bwd_kernel",
                      "coupling_fwd_kernel", "refgrad_kernel")
 # each launch count's kernel by its __global__ name in csrc/
@@ -2753,6 +2794,7 @@ KERNEL_GLOBALS = {"cqt_project": "cqt_tile_kernel", "synth_render": "synth_fwd_k
                   "stft_frontend": "stft_frontend_fft_kernel",
                   "conv1d_forward": "conv_fwd_mma_kernel", "conv1d_weight": "conv_dw_mma_kernel"}
 GRAPH_READINGS: dict = {}  # [train-graph]'s readings, printed together at the end
+TRACE_TRIES = 2          # traces added when a route kernel's record is missing
 
 
 @contextlib.contextmanager
@@ -2789,7 +2831,7 @@ def adam_capturable_check(cfg, dev, x_all) -> None:
     against the plain (non-capturable) Adam on identical gradients: the gradients
     of GRAPH_STEPS real SOT-2048 steps, applied from the same parameters by
     each; information only (they order the bias correction differently)."""
-    mod, st = fresh_state(cfg, dev, "auto")
+    mod, st = fresh_state(cfg, dev, JAX_AUTO)
     start = [p.detach().clone() for p in mod.encoder.parameters()]
     grads = []
     for i in range(GRAPH_STEPS):
@@ -2812,6 +2854,36 @@ def adam_capturable_check(cfg, dev, x_all) -> None:
     print(f"[train-graph] capturable Adam against the plain Adam on the gradients of "
           f"{GRAPH_STEPS} SOT-2048 steps: parameters max|d| {d:.3e} against a largest update "
           f"of {update:.3e}; {n} of {total} parameters differ")
+
+
+def replay_kernels(what, fn, on, top=12):
+    """Profile ``fn`` (one replay) and read the hand-written kernels by name
+    in its trace; while a kernel of ``on`` is missing, trace two calls of
+    ``fn``, up to TRACE_TRIES more traces, and join them. torch.profiler
+    on the card can lose the first ~10 device records of a trace late in a
+    long run (a pause of the host before the work did not prevent it); the
+    second call of a trace is whole, and no trace adds records. Returns
+    (the first profile's busy ms, or None where that trace missed a kernel
+    of ``on``, and the kernels seen)."""
+    busy = profile_device(what, fn, top=top)
+    seen = kernels_in_trace(what)
+    if not set(on) <= seen:
+        print(f"[profile] {what}: the trace misses {sorted(set(on) - seen)}: its busy ms "
+              f"not measured")
+        BUSY_MS.pop(what, None)
+        busy = None
+
+    def twice():
+        fn()
+        fn()
+
+    for i in range(2, TRACE_TRIES + 2):
+        if set(on) <= seen:
+            break
+        again = f"{what}, trace {i} (two calls)"
+        profile_device(again, twice, top=0)
+        seen |= kernels_in_trace(again)
+    return busy, seen
 
 
 def kernels_in_trace(what) -> set:
@@ -2924,9 +2996,8 @@ def eval_graph_check(mod, dev, val, label) -> None:
     reset_launches()
     got = {k: float(v) for k, v in graph().items()}
     launches = read_launches()
-    what = f"eval_all's replays over {len(full)} {label} val batches"
-    profile_device(what, graph, top=0)
-    seen = kernels_in_trace(what)
+    _, seen = replay_kernels(f"eval_all's replays over {len(full)} {label} val batches",
+                             graph, ("cqt_project", "synth_render"), top=0)
     step = trainer.make_eval_step(mod)
     ms = [step(x, f0) for x, f0 in zip(xs, f0s)]
     want = {k: float(torch.mean(torch.stack([m[k] for m in ms]))) for k in ms[0]}
@@ -2968,14 +3039,14 @@ def check_train_graph(dev, x_all, routes) -> None:
         ms = in_turns(f"{label}, graph against eager (default cuDNN)", (
             ("eager", lambda o: trainer.train_steps(mod_e, st_e, x_all, o)), ("graph", graph)),
             offsets)
+        busy_graph, seen = replay_kernels(f"one replayed {label} step",
+                                          lambda: graph(offsets[:1]), on, top=30)
         busy = {
-            "graph": profile_device(f"one replayed {label} step", lambda: graph(offsets[:1]),
-                                    top=30),
+            "graph": busy_graph,
             "eager": profile_device(f"one eager {label} step",
                                     lambda: trainer.train_steps(mod_e, st_e, x_all,
                                                                 offsets[:1]), top=0)}
         idle = {k: None if busy[k] is None else 1.0 - busy[k] / ms[k] for k in ms}
-        seen = kernels_in_trace(f"one replayed {label} step")
         print(f"[train-graph] {label}: hand-written kernels by name in the trace of one "
               f"replay: {sorted(seen)}")
         require(seen == set(on), f"{label}: the trace of a replay holds the route's kernels "
@@ -2989,19 +3060,20 @@ def check_train_graph(dev, x_all, routes) -> None:
               + "; idle share of the host-clock step graph "
               + " / eager ".join("not measured" if idle[k] is None else f"{idle[k]:.3f}"
                                  for k in ("graph", "eager")) + f" | {card_line()}")
-        if label == "SOT-2048 auto":
+        if label == "SOT-2048 jax-auto":
             resume_across_paths(cfg_r, dev, x_all, kernels, det_eager, label)
             det_graph = det[2]
             det_ms = in_turns(f"{label}, the graph under the default cuDNN against "
                               f"cudnn.deterministic", (("default", graph),
                                                        ("deterministic", det_graph)), offsets)
-            GRAPH_READINGS["SOT-2048 auto cudnn"] = det_ms
+            GRAPH_READINGS["SOT-2048 jax-auto cudnn"] = det_ms
             # the conv gate's host-clock A/B, which needed the graph
             mod_c, st_c = fresh_state(cfg_r, dev, CONV_F32)
             conv_graph = st_c.graph = trainer.TrainGraph(mod_c, st_c, x_all)
             GRAPH_READINGS["SOT-2048 conv gate"] = in_turns(
-                f"{label}, the conv gate on the graph (information only): auto against auto + "
-                f"kernels 10-11 in 3xTF32", (("auto", graph), ("conv f32", conv_graph)), offsets)
+                f"{label}, the conv gate on the graph (information only): jax-auto against "
+                f"jax-auto + kernels 10-11 in 3xTF32", (("jax-auto", graph),
+                                                        ("conv f32", conv_graph)), offsets)
             del mod_c, st_c, conv_graph
         del mod_e, st_e, mod_g, st_g, graph, det, det_eager
     print(f"[train-graph] the phase took {time.perf_counter() - t_phase:.1f} s of host clock")
@@ -3022,7 +3094,7 @@ def check_profile_cli(dev) -> None:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_", dir=os.path.join(ROOT, "runs"))
     try:
         out = os.path.join(tmp, "run")
-        text, _, _ = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+        text, _, _ = run_cli(["train", "--experiment", "SOT-2048", *JAX_AUTO_FLAGS,
                               "--profile", "--steps", "1", "--eval-every", "1", "--out", out]
                              + device_flags(dev))
         table = text[text.index("# device trace ->"):].splitlines()
@@ -3041,7 +3113,7 @@ def check_profile_cli(dev) -> None:
                 and any("kernel: csrc (hand-written)" in line for line in table),
                 "cli train --profile: no table of the hand-written kernels")
         require(set(AUTO_KERNEL_NAMES) <= set(found),
-                "cli train --profile: a kernel of the auto route is missing from the trace")
+                "cli train --profile: a kernel of the JAX_AUTO route is missing from the trace")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3130,9 +3202,8 @@ def serve_graph_route(cfg, dev, label, kernels, on) -> None:
     diffs = [serve_diff(predict(mod, x), eager_body(mod, x)) for x in requests[:SERVE_REPLAYS]]
     print(f"[serve-graph] {label} (default cuDNN): replays against the eager body, largest "
           f"max|d| over the outputs per request: {', '.join(f'{d:.3e}' for d in diffs)}")
-    what = f"one served {label} request (a replay)"
-    busy_graph = profile_device(what, lambda: predict(mod, requests[0]), top=12)
-    seen = kernels_in_trace(what)
+    busy_graph, seen = replay_kernels(f"one served {label} request (a replay)",
+                                      lambda: predict(mod, requests[0]), on)
     print(f"[serve-graph] {label}: hand-written kernels by name in the trace of one replay: "
           f"{sorted(seen)}")
     require(seen == set(on), f"{label}: the trace of a replay holds the route's kernels "
@@ -3218,8 +3289,8 @@ def check_serve_graph(cfg, dev) -> None:
     t_phase = time.perf_counter()
     base = ("cqt_project", "synth_render")
     for label, kernels, override, on in (
-            ("auto", "auto", {}, base),
-            ("auto + comb", "auto", {"inference_comb_correction": True}, base),
+            ("jax-auto", JAX_AUTO, {}, base),
+            ("jax-auto + comb", JAX_AUTO, {"inference_comb_correction": True}, base),
             ("gated + octave", GATED, {"inference_octave_correction": True},
              base + ("stft_frontend", "conv1d_forward"))):
         serve_graph_route(cfg.replace(**override), dev, label, kernels, on)
@@ -3325,7 +3396,7 @@ def steps_per_sec(spy: ChunkSpy) -> float:
 
 
 def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
-    """[train-run]: ``cli train`` of SOT-2048 under ``auto`` for three epochs
+    """[train-run]: ``cli train`` of SOT-2048 under JAX_AUTO for three epochs
     with an evaluation after each and ``--final-eval``; its records, best
     metrics, checkpoints and test metrics; kernels 1-5 launched during it;
     the ``last`` checkpoint restored bit for bit into fresh modules; two
@@ -3334,7 +3405,10 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
     val record; ``cli predict`` from it on 64 clips; SOT-2048-SS-Probes with
     two probes; MSS-LogLin 4 train steps and its roll-off on the card
     against the CPU. ``overrides`` and ``dataset_size`` shrink the configs
-    (the CPU rehearsal in the tests); the card runs them at full width."""
+    (the CPU rehearsal in the tests); the card runs them at full width.
+    ``python -m sot_tpu_torch.train_verdict port`` reads the run: its
+    trajectory and comb RPA as the run wrote them."""
+    import io
     import shutil
     import tempfile
 
@@ -3356,7 +3430,7 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
         out = os.path.join(tmp, "run")
         reset_launches()
         t0 = time.perf_counter()
-        _, chunks, saves = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+        _, chunks, saves = run_cli(["train", "--experiment", "SOT-2048", *JAX_AUTO_FLAGS,
                                     "--steps", str(steps), "--eval-every", str(epoch),
                                     "--final-eval", "--out", out] + flags)
         wall = time.perf_counter() - t0
@@ -3365,7 +3439,7 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
         train_recs = [r for r in records if r["split"] == "train"]
         val_recs = [r for r in records if r["split"] == "val"]
         want = [epoch * (i + 1) for i in range(TRAIN_RUN_EPOCHS)]
-        print(f"[train-run] cli train SOT-2048 --kernels auto --steps {steps} --eval-every "
+        print(f"[train-run] cli train SOT-2048 {' '.join(JAX_AUTO_FLAGS)} --steps {steps} --eval-every "
               f"{epoch} --final-eval: {len(records)} records, train at "
               f"{[int(r['step']) for r in train_recs]}, val at "
               f"{[int(r['step']) for r in val_recs]}, val LSD "
@@ -3401,6 +3475,25 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
                                      "test_metrics_comb.json")))
         print(f"[train-run] launches during cli train (train steps, evaluations, final "
               f"evaluation): {launches}")
+        # the port verdict reads the run's log and metrics end to end
+        verdict_dir = os.path.join(tmp, "verdict")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train_verdict.main(["port", "--run", out, "--out", verdict_dir]
+                                    + device_flags(dev))
+        with open(os.path.join(verdict_dir, "port_train_verdict.json")) as fh:
+            verdict = json.load(fh)
+        traj = train_verdict.loss_trajectory(*os.path.split(out))
+        comb = json.load(open(os.path.join(out, "test_metrics_comb.json")))["test_metrics"]
+        print(f"[train-run] train_verdict port on the run: port_ok {verdict['port_ok']} (exit "
+              f"{rc}), checks {verdict['checks']}, comb RPA {verdict['run']['test']['comb']['RPA']}"
+              f" against the JAX twin's {verdict['twin']['test']['comb']['RPA']}, val LSD "
+              f"trajectory {verdict['run']['val_lsd_trajectory']}")
+        require(rc == (0 if verdict["port_ok"] else 2), "train_verdict's exit code")
+        require(verdict["run"]["val_lsd_trajectory"] == traj and sorted(traj) == sorted(
+            ["1000", "3000", "10000", "25000"]) and traj["25000"] == round(
+            val_recs[-1]["log_spectral_distance"], 2), "the verdict's trajectory of the run")
+        require(verdict["run"]["test"]["comb"]["RPA"] == round(
+            100 * comb["raw_pitch_accuracy"], 2), "the verdict's comb RPA of the run")
         if dev.type == "cuda":
             require(all(launches[k] > 0 for k in ("cqt_project", "synth_render", "synth_backward",
                                                     "merge_coupling", "ref_grad_beta")),
@@ -3410,7 +3503,7 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
               f"records {[round(r['samples_per_sec'], 1) for r in train_recs]} | {card}")
         if dev.type == "cuda":
             # the A/B of the host clock: the same run, its chunks on the eager loop
-            _, chunks_e, _ = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+            _, chunks_e, _ = run_cli(["train", "--experiment", "SOT-2048", *JAX_AUTO_FLAGS,
                                       "--steps", str(steps), "--eval-every", str(epoch),
                                       "--out", os.path.join(tmp, "run-eager")] + flags,
                                      eager=True)
@@ -3422,7 +3515,8 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
         last = os.path.join(ckpts, "last")
         require(saves.last is not None, "no in-memory copy of `last` was taken")
         on_disk = tree_diff(ckpt_lib.load(last), saves.last)
-        mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(1),
+                            kernels=JAX_AUTO)
         state = trainer.init_state(mod, seed=cfg.seed + 1)
         step = ckpt_lib.restore(last, mod, state)
         restored = tree_diff(ckpt_lib.payload(mod, state, step), saves.last)
@@ -3469,8 +3563,8 @@ def check_train_run(dev, overrides=None, dataset_size=None, x_all=None) -> None:
         out_p = os.path.join(tmp, "probes")
         cfg_p = get_experiment("SOT-2048-SS-Probes", **overrides, n_init_probes=2,
                                probe_steps=epoch)
-        _, chunks_p, _ = run_cli(["train", "--experiment", "SOT-2048-SS-Probes", "--kernels",
-                                  "auto", "--set", "n_init_probes=2", "--set",
+        _, chunks_p, _ = run_cli(["train", "--experiment", "SOT-2048-SS-Probes",
+                                  *JAX_AUTO_FLAGS, "--set", "n_init_probes=2", "--set",
                                   f"probe_steps={epoch}", "--steps", str(2 * epoch), "--out",
                                   out_p] + flags)
         recs = run_records(out_p)
@@ -3511,7 +3605,7 @@ def resume_twice(cfg, dev, tmp, last, steps, epoch, flags, card, deterministic) 
     try:
         for i in range(2):
             out_r = os.path.join(tmp, f"resume-{tag}-{i}")
-            _, chunks_r, _ = run_cli(["train", "--experiment", "SOT-2048", "--kernels", "auto",
+            _, chunks_r, _ = run_cli(["train", "--experiment", "SOT-2048", *JAX_AUTO_FLAGS,
                                       "--steps", str(steps + epoch), "--eval-every", str(epoch),
                                       "--out", out_r, "--resume", last] + flags)
             recs = [r for r in run_records(out_r) if r["split"] == "train"]
@@ -3554,14 +3648,14 @@ def check_mss_loglin(dev, overrides, dataset_size, x_all) -> None:
         x_all = torch.from_numpy(data_lib.peak_normalize(
             data_lib.dataset_from_config(cfg, device=dev)["train"].x)).to(dev)
     mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
-                        kernels="auto")
+                        kernels=JAX_AUTO)
     state = trainer.init_state(mod)
     reset_launches()
     epoch = len(x_all) // cfg.batch_size
     times, logs = timed_steps(mod, state, x_all,
                               (np.arange(TRAIN_STEPS) % epoch) * cfg.batch_size)
     loss, gnorm = float(logs["loss/total"]), float(logs["grad_norm"])
-    print(f"[train-run] MSS-LogLin kernels=auto: {TRAIN_STEPS} steps x {cfg.batch_size} clips: "
+    print(f"[train-run] MSS-LogLin kernels=jax-auto: {TRAIN_STEPS} steps x {cfg.batch_size} clips: "
           f"step ms {', '.join(f'{v:.3f}' for v in times)}; last loss {loss:.6f}, grad_norm "
           f"{gnorm:.6f}; launches {read_launches()}")
     require(math.isfinite(loss) and math.isfinite(gnorm), "MSS-LogLin: non-finite loss")
@@ -3861,7 +3955,7 @@ def check_figures(dev, overrides=None, dataset_size=None) -> None:
         g = eval_golden()
         mods = {}
         for where in (dev, torch.device("cpu")):
-            mods[where.type] = build_modules(cfg, device=where)
+            mods[where.type] = build_modules(cfg, device=where, kernels=JAX_AUTO)
             load_golden_weights(mods[where.type])
         x = torch.from_numpy(g["x"])
         reset_launches()
@@ -3902,7 +3996,7 @@ def check_figures(dev, overrides=None, dataset_size=None) -> None:
     flags += ["--dataset-size", str(dataset_size or 640)] + device_flags(dev)
     os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_figures_", dir=os.path.join(ROOT, "runs"))
-    argv = ["train", "--experiment", "SOT-2048", "--kernels", "auto", "--figures", "--steps",
+    argv = ["train", "--experiment", "SOT-2048", *JAX_AUTO_FLAGS, "--figures", "--steps",
             str(FIGURE_STEPS), "--eval-every", str(FIGURE_STEPS), "--out", tmp] + flags
     try:
         if have is None:
@@ -4031,8 +4125,8 @@ def check_parallel(cfg, dev, x_all) -> None:
     batches = x_all[:PARALLEL_STEPS * BATCH].reshape(PARALLEL_STEPS, BATCH, -1).cpu().numpy()
     card = card_line()
     t0 = time.perf_counter()
-    one = dryrun.run(1, device=dev, cfg=cfg, batches=batches, deterministic=True,
-                     timing=PARALLEL_WINDOW)
+    one = dryrun.run(1, device=dev, cfg=cfg, kernels=JAX_AUTO, batches=batches,
+                     deterministic=True, timing=PARALLEL_WINDOW)
     seconds = time.perf_counter() - t0
     (mesh,) = one["meshes"]
     require(one["backend"] == "nccl" and mesh["mesh"] == {"data": 1, "freq": 1},
@@ -4062,7 +4156,8 @@ def check_parallel(cfg, dev, x_all) -> None:
           f"{timing['profile_largest_extra_ms']} | {card}")
 
     t0 = time.perf_counter()
-    two = dryrun.run(2, device=dev, backend="gloo", cfg=cfg, batches=batches[:PARALLEL_2_STEPS])
+    two = dryrun.run(2, device=dev, backend="gloo", cfg=cfg, kernels=JAX_AUTO,
+                     batches=batches[:PARALLEL_2_STEPS])
     seconds = time.perf_counter() - t0
     require([m["mesh"] for m in two["meshes"]] == [{"data": 2, "freq": 1}, {"data": 1, "freq": 2}],
             f"[parallel] two ranks ran the meshes {[m['mesh'] for m in two['meshes']]}")
@@ -4097,6 +4192,121 @@ def check_parallel(cfg, dev, x_all) -> None:
           f"spawn)")
 
 
+# ---------------------------------------------------------------------------
+# [adoption]: the gates auto_gates picks, their A/Bs' parity, the new route
+# ---------------------------------------------------------------------------
+
+ADOPTION_ITERS = 8       # [adoption]: replays of each A/B graph (gate_ab's default)
+# kernels 10-11 in 3xTF32 against cuDNN's f32 convs through the whole encoder
+# at conv_ab's shape: its outputs and parameter gradients, max|d|/max (both
+# f32-accurate; the per-conv limit is CONV_LIMIT)
+CONV_PARITY_LIMIT = 1e-4
+SOT_ROUTE_KERNELS = {"plane": ("sot_plane_forward", "sot_plane_backward"),
+                     "ref": ("merge_coupling", "ref_grad_beta"),
+                     "hybrid": ("merge_coupling", "sot_plane_backward"),
+                     "full": ("merge_coupling", "coupling_grads")}
+
+
+def route_kernels(gates: KernelGates, n_bins: int) -> tuple:
+    """The hand-written kernels a SOT train step with rows of ``n_bins``
+    bins launches under ``gates``."""
+    return (("cqt_project", "synth_render", "synth_backward")
+            + SOT_ROUTE_KERNELS[wasserstein_lib.w2_route(n_bins, gates)]
+            + (("conv1d_forward", "conv1d_weight") if gates.conv else ())
+            + (("stft_frontend",) if gates.stft_frontend else ()))
+
+
+def conv_parity(dev) -> tuple:
+    """The encoder on conv_ab's input with kernels 10-11 (3xTF32) against
+    cuDNN's f32 convs: (outputs' max|d|/max, parameter gradients' max|d| over
+    the largest gradient), the same weights in both."""
+    x = torch.randn(BATCH * 16, gate_ab.CONV_BINS,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    got = []
+    for dtype in (None, torch.float32):
+        enc = gate_ab.encoder(dev, dtype)
+        out = enc(x)
+        grads = torch.autograd.grad(sum(torch.sum(o) for o in out.values()),
+                                    list(enc.parameters()))
+        got.append(([o.detach() for o in out.values()], grads))
+    (out_c, grad_c), (out_k, grad_k) = got
+    out_rel = max(max_rel(a, b) for a, b in zip(out_k, out_c))
+    scale = max(float(g.abs().max()) for g in grad_c)
+    grad_rel = max(float((a - b).abs().max()) for a, b in zip(grad_k, grad_c)) / scale
+    return out_rel, grad_rel
+
+
+def frontend_parity(dev) -> dict:
+    """Kernel 9 against cuFFT on mss_ab's clips at each MSS scale the
+    frontend takes: max|d|/max of the magnitude STFT, by n_fft."""
+    from sot_tpu_torch.ops.kernels.stft import frontend_applicable
+    from sot_tpu_torch.ops.stft import stft_magnitude
+
+    x = torch.randn(BATCH, 4096, generator=torch.Generator().manual_seed(1)).to(dev)
+    out = {}
+    for size in (2048, 1024, 512, 256, 128, 64):
+        if frontend_applicable(size, size // 4, x.shape[-1], True, False):
+            out[size] = max_rel(stft_magnitude(x, size=size, overlap=0.75, frontend=True),
+                                stft_magnitude(x, size=size, overlap=0.75))
+    return out
+
+
+def check_adoption(cfg, dev, x_all) -> None:
+    """[adoption]: ``auto`` as kernel_gates.auto_gates resolves it from the
+    committed files; every A/B of gate_ab run again at full shape, its
+    times printed beside the committed ones (nothing asserted on speed),
+    the parity of each pair held: ``ref`` against ``hybrid`` (the A/B's own
+    check), kernels 10-11 against cuDNN through the encoder
+    (CONV_PARITY_LIMIT), kernel 9 against cuFFT (FRONTEND_LIMIT). Where
+    ``auto`` is not JAX_AUTO, its route: predict on the golden weights
+    against JAX's, the train step against JAX's golden and the port on the
+    CPU with the route's controls, 4 eager steps whose launches are the
+    route's kernels, 4 replays of the step's graph bit-equal to 4 eager
+    steps with the route's kernels by name in a replay's trace
+    ([train-graph]), and the served request on its graph ([serve-graph])."""
+    t_phase = time.perf_counter()
+    auto = PRESETS["auto"]
+    card = card_line()
+    print(f"[adoption] kernel_gates.auto_gates() from the committed files: {auto}; "
+          f"JAX_AUTO {'equal' if auto == JAX_AUTO else 'differs'}")
+    for name, kind, n_fft, k in gate_ab.AB_FILES:
+        with open(os.path.join(ADOPTION_DIR, name)) as fh:
+            committed = json.load(fh)
+        now = gate_ab.measure(kind, dev, n_fft=n_fft, k=k, iters=ADOPTION_ITERS)
+        variants = [v for v, d in now.items() if isinstance(d, dict) and "fwd_ms" in d]
+        print(f"[adoption] {name}: fwd + grad ms now (committed, {committed['device']}): "
+              + "; ".join(f"{v} {now[v]['fwd_ms']:.4f} + {now[v]['grad_ms']:.4f} "
+                          f"({committed[v]['fwd_ms']:.4f} + {committed[v]['grad_ms']:.4f})"
+                          for v in variants) + f" | {card}")
+        if "parity" in now:
+            print(f"[adoption] {name}: ref against hybrid gradient max|d|/max "
+                  f"{now['parity']['max_rel']:.3e} (committed {committed['parity']['max_rel']:.3e},"
+                  f" limit {gate_ab.REFGRAD_PARITY_LIMIT})")
+            require(now["parity"]["ok"], f"{name}: ref and hybrid gradients disagree")
+    out_rel, grad_rel = conv_parity(dev)
+    print(f"[adoption] conv_ab's pair: the encoder with kernels 10-11 (3xTF32) against cuDNN "
+          f"f32: outputs max|d|/max {out_rel:.3e}, parameter gradients {grad_rel:.3e} (limit "
+          f"{CONV_PARITY_LIMIT})")
+    require(max(out_rel, grad_rel) <= CONV_PARITY_LIMIT, "kernels 10-11 disagree with cuDNN")
+    stft_rel = frontend_parity(dev)
+    print(f"[adoption] mss_ab's pair: kernel 9 against cuFFT, max|d|/max by n_fft {stft_rel} "
+          f"(limit {FRONTEND_LIMIT})")
+    require(max(stft_rel.values()) <= FRONTEND_LIMIT, "kernel 9 disagrees with cuFFT")
+    if auto == JAX_AUTO:
+        print(f"[adoption] auto is JAX_AUTO: its route ran in every earlier phase")
+    else:
+        on = route_kernels(auto, len(build_modules(cfg, device="cpu", kernels=auto).x_pos))
+        check_golden(cfg, dev, kernels=auto, phase="adoption")
+        check_train_golden(cfg, dev, kernels=auto, phase="adoption-train-golden")
+        launches = train(cfg, dev, x_all, kernels=auto, on=on, window=False)
+        print(f"[adoption] SOT-2048 auto: launches during {TRAIN_STEPS} eager steps "
+              f"{launches}; route kernels {list(on)}")
+        check_train_graph(dev, x_all, (("SOT-2048 auto", cfg, auto, on),))
+        serve_graph_route(cfg, dev, "auto", auto, ("cqt_project", "synth_render")
+                          + (("conv1d_forward",) if auto.conv else ()))
+    print(f"[adoption] the phase took {time.perf_counter() - t_phase:.1f} s of host clock")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab-parent", metavar="PATH", nargs="+", default=[],
@@ -4129,8 +4339,8 @@ def main() -> int:
     kernels = [check_cqt(cfg, dev, rng), check_synth(cfg, dev, rng)]
     mod = check_golden(cfg, dev)
     serving_launches, last_request = serve(cfg, mod)
-    profile_device("one served request", lambda: predict(mod, last_request))
-    seen = kernels_in_trace("one served request")
+    _, seen = replay_kernels("one served request", lambda: predict(mod, last_request),
+                             ("cqt_project", "synth_render"))
     require(seen == {"cqt_project", "synth_render"},
             f"the trace of one served request holds the hand-written kernels {sorted(seen)}, "
             f"not kernels 1 and 2 alone")
@@ -4139,7 +4349,7 @@ def main() -> int:
     # the train step's kernels on real SOT rows of the trained models
     batches = make_requests(cfg, dev, 1 + TIMING_INPUTS, seed=3000)
     rows = [sot_rows(mod, torch.from_numpy(b).to(dev)) for b in batches]
-    mod512 = build_modules(cfg512, device=dev)
+    mod512 = build_modules(cfg512, device=dev, kernels=JAX_AUTO)
     load_golden_weights(mod512, GOLDEN_512)
     rows512 = [sot_rows(mod512, torch.from_numpy(b).to(dev)) for b in batches]
     shapes = {"[1024, 258]": rows512, "[1024, 1026]": rows}
@@ -4175,11 +4385,13 @@ def main() -> int:
     common = ("cqt_project", "synth_render", "synth_backward")
     gated = ("coupling_grads", "stft_frontend", "conv1d_forward", "conv1d_weight")
     runs = {
-        "SOT-2048 auto": train(cfg, dev, x_all, on=common + ("merge_coupling", "ref_grad_beta")),
-        "SOT-512 auto": train(cfg512, dev, x_all,
-                              on=common + ("merge_coupling", "sot_plane_backward")),
-        "SOT-512-LogF auto": train(get_experiment("SOT-512-LogF"), dev, x_all, window=False,
-                                   on=common + ("merge_coupling", "sot_plane_backward")),
+        "SOT-2048 jax-auto": train(cfg, dev, x_all,
+                                   on=common + ("merge_coupling", "ref_grad_beta")),
+        "SOT-512 jax-auto": train(cfg512, dev, x_all,
+                                  on=common + ("merge_coupling", "sot_plane_backward")),
+        "SOT-512-LogF jax-auto": train(get_experiment("SOT-512-LogF"), dev, x_all,
+                                       window=False,
+                                       on=common + ("merge_coupling", "sot_plane_backward")),
         "SOT-2048 default": train(cfg, dev, x_all, kernels="default",
                                   on=common + ("sot_plane_forward", "sot_plane_backward")),
         "SOT-512 default": train(cfg512, dev, x_all, kernels="default", window=False,
@@ -4189,8 +4401,7 @@ def main() -> int:
         "SOT-512 gated": train(cfg512, dev, x_all, kernels=GATED, window=False,
                                on=common + ("merge_coupling",) + gated),
         "SOT-2048 conv_bf16": train(cfg, dev, x_all, kernels=CONV_BF16, window=False,
-                                    on=common + ("merge_coupling", "ref_grad_beta"),
-                                    gates_name="auto+conv_bf16"),
+                                    on=common + ("merge_coupling", "ref_grad_beta")),
     }
     conv_launches = (runs["SOT-2048 gated"]["conv1d_forward"],
                      runs["SOT-2048 gated"]["conv1d_weight"])
@@ -4199,31 +4410,33 @@ def main() -> int:
             f"expected {4 * TRAIN_STEPS} / {2 * TRAIN_STEPS}")
     conv_gate_ab(cfg, dev, x_all)
     check_train_graph(dev, x_all, (
-        ("SOT-2048 auto", cfg, "auto", common + ("merge_coupling", "ref_grad_beta")),
+        ("SOT-2048 jax-auto", cfg, JAX_AUTO, common + ("merge_coupling", "ref_grad_beta")),
         ("SOT-2048 default", cfg, "default",
          common + ("sot_plane_forward", "sot_plane_backward")),
         ("SOT-2048 gated", cfg.replace(eval_comb_correction=True), GATED,
          common + ("merge_coupling",) + gated),
-        ("SOT-512 auto", cfg512, "auto", common + ("merge_coupling", "sot_plane_backward"))))
+        ("SOT-512 jax-auto", cfg512, JAX_AUTO,
+         common + ("merge_coupling", "sot_plane_backward"))))
     check_train_run(dev, x_all=x_all)
     check_profile_cli(dev)
     check_paper_table(dev)
     check_parallel(cfg, dev, x_all)
+    check_adoption(cfg, dev, x_all)
     # each kernel's count from the run whose main path it is on (kernel 4 at
-    # [1024, 257]: SOT-512 auto; kernels 6 and 7 at each loss shape: SOT-2048
-    # default at [1024, 1026], SOT-512 default (6) and auto (7) at [1024, 258];
-    # kernel 8 at [1024, 257]: SOT-512 gated)
-    main_path = {("merge_coupling", "[1024, 257]"): "SOT-512 auto",
+    # [1024, 257]: SOT-512 jax-auto; kernels 6 and 7 at each loss shape:
+    # SOT-2048 default at [1024, 1026], SOT-512 default (6) and jax-auto (7)
+    # at [1024, 258]; kernel 8 at [1024, 257]: SOT-512 gated)
+    main_path = {("merge_coupling", "[1024, 257]"): "SOT-512 jax-auto",
                  ("coupling_grads", "[1024, 1025]"): "SOT-2048 gated",
                  ("coupling_grads", "[1024, 257]"): "SOT-512 gated",
                  ("sot_plane_forward", "[1024, 1026]"): "SOT-2048 default",
                  ("sot_plane_backward", "[1024, 1026]"): "SOT-2048 default",
                  ("sot_plane_forward", "[1024, 258]"): "SOT-512 default",
-                 ("sot_plane_backward", "[1024, 258]"): "SOT-512 auto",
+                 ("sot_plane_backward", "[1024, 258]"): "SOT-512 jax-auto",
                  **{(k, None): "SOT-2048 gated" for k in gated}}
     print(f"[serving] launches during the serving requests: {serving_launches}")
     for k in kernels:
-        run = main_path.get((k["name"], k.get("shape")), "SOT-2048 auto")
+        run = main_path.get((k["name"], k.get("shape")), "SOT-2048 jax-auto")
         k["launches"] = runs[run][k["name"]]
         print(f"[timing] {k['name']}{' ' + k['shape'] if 'shape' in k else ''}: kernel "
               f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "

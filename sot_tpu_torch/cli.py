@@ -3,6 +3,8 @@
     python -m sot_tpu_torch.cli train --experiment SOT-2048 --seed 42 \
         --steps 25000 --kernels auto --final-eval --out runs/sot2048-42
     python -m sot_tpu_torch.cli train ... --resume runs/sot2048-42/checkpoints/last
+    python -m sot_tpu_torch.cli train ... --kernels auto --gate conv=true \
+        --gate conv_dtype=float32
     python -m sot_tpu_torch.cli evaluate --ckpt runs/sot2048-42/checkpoints/best-lsd
     python -m sot_tpu_torch.cli analyze --ckpt runs/sot2048-42/checkpoints/best-lsd
     python -m sot_tpu_torch.cli predict --ckpt runs/.../best-lsd --input clips.npy \
@@ -12,7 +14,9 @@
 
 Every command but ``list`` runs on the GPU unless ``--device cpu`` asks for
 the CPU; without a GPU and without ``--device`` it raises. A run directory
-holds ``train_config.json`` (the resolved config), ``log.jsonl``,
+holds ``train_config.json`` (the resolved config), ``kernel_gates.json``
+(the gates the run trained and evaluated with: ``--kernels`` and the
+``--gate FIELD=VALUE`` pins, the port's ``SOT_TPU_*``), ``log.jsonl``,
 ``checkpoints/{best-lsd,last}`` and ``best_metrics.json``; ``--ckpt`` takes
 a run checkpoint, whose run's ``train_config.json`` is used, a
 ``torch.save`` of the encoder's ``state_dict`` (for weights trained by the
@@ -34,6 +38,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shlex
 import sys
 
 from sot_tpu_torch.configs import EXPERIMENTS, PAPER_SEEDS, get_experiment
@@ -162,6 +167,18 @@ def _model(cfg, args, device):
     return mod
 
 
+def _train_gates(kernels: str, pin_texts):
+    """The gates of ``cli train``: ``--kernels``' preset with the ``--gate``
+    pins, which under ``auto`` also remove the candidates they touch
+    (``kernel_gates.auto_gates``) and under ``default`` are set on top."""
+    from sot_tpu_torch.kernel_gates import auto_gates, parse_pin, resolve_gates
+
+    pins = dict(parse_pin(text) for text in pin_texts or ())
+    if kernels == "auto" and pins:
+        return auto_gates(pins=pins), pins
+    return dataclasses.replace(resolve_gates(kernels), **pins), pins
+
+
 def _profile_steps(cfg, trace_dir: str, device, kernels, n_steps: int = 5) -> None:
     """A trace of ``n_steps`` train steps on one batch after 3 warm-up steps
     (the JAX package's ``_profile_steps``) and its device-time table: on the
@@ -193,7 +210,8 @@ def _profile_steps(cfg, trace_dir: str, device, kernels, n_steps: int = 5) -> No
 
 def cmd_train(args: argparse.Namespace) -> int:
     from sot_tpu_torch import data as data_lib
-    from sot_tpu_torch.kernel_gates import resolve_gates
+    from sot_tpu_torch.device import card_line
+    from sot_tpu_torch.kernel_gates import gates_record
     from sot_tpu_torch.training.trainer import build_modules, evaluate, make_eval_step, train
 
     overrides = {}
@@ -215,22 +233,27 @@ def cmd_train(args: argparse.Namespace) -> int:
         overrides["eval_every_steps"] = args.eval_every
     overrides.update(_parse_set_overrides(args.set))
     cfg = get_experiment(experiment, **overrides)
+    gates, pins = _train_gates(args.kernels, args.gate)
     device = _resolve(args.device)
-    print(f"kernel gates ({args.kernels}): {resolve_gates(args.kernels)}")
+    print(f"kernel gates ({args.kernels}{' + --gate pins' if pins else ''}): {gates}")
 
     out = args.out or f"runs/{cfg.name}-{cfg.seed}"
     os.makedirs(out, exist_ok=True)
     _save_resolved_config(cfg, out)
+    with open(os.path.join(out, "kernel_gates.json"), "w") as fh:
+        json.dump({"kernels": args.kernels, "pins": list(args.gate or ()),
+                   "gates": gates_record(gates), "command": args.command_line,
+                   "device": card_line(device)}, fh, indent=2)
 
     if args.profile:
-        _profile_steps(cfg, os.path.join(out, "trace"), device, args.kernels)
+        _profile_steps(cfg, os.path.join(out, "trace"), device, gates)
 
     splits = data_lib.dataset_from_config(cfg, device=device)
     mod, _, best = train(cfg, max_steps=args.steps,
                          checkpoint_dir=os.path.join(out, "checkpoints"),
                          log_file=os.path.join(out, "log.jsonl"), splits=splits,
                          resume_from=args.resume, figure_dir=out if args.figures else None,
-                         device=device, kernels=args.kernels)
+                         device=device, kernels=gates)
     with open(os.path.join(out, "best_metrics.json"), "w") as fh:
         json.dump(best, fh, indent=2)
     print(json.dumps({"best_val_metrics": best}))
@@ -244,7 +267,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                                ("comb", "test_metrics_comb.json")):
             cfg_e = cfg.replace(eval_octave_correction=variant == "octcorr",
                                 eval_comb_correction=variant == "comb")
-            mod_e = build_modules(cfg_e, device=device, kernels=args.kernels)
+            mod_e = build_modules(cfg_e, device=device, kernels=gates)
             mod_e.encoder.load_state_dict(params)
             m = evaluate(mod_e, make_eval_step(mod_e), splits["test"], cfg.batch_size)
             with open(os.path.join(out, fname), "w") as fh:
@@ -406,7 +429,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="generic config field override (repeatable)")
     t.add_argument("--kernels", default="default", choices=("default", "auto"),
                    help="the port's kernel-gate preset (kernel_gates.PRESETS): 'auto' the "
-                        "merge-coupling SOT routes, 'default' the banded plane")
+                        "committed H100 A/B winners (sot_tpu_torch/adoption/), 'default' "
+                        "every gate off")
+    t.add_argument("--gate", action="append", default=None, metavar="FIELD=VALUE",
+                   help="pin one kernel gate (repeatable), the JAX package's SOT_TPU_* "
+                        "variables: a KernelGates field (w2_merge=off|full|hybrid|ref, "
+                        "w2_merge_small=|off|full|hybrid|ref, conv, conv_bf16, "
+                        "stft_frontend, dft_matmul =true|false, conv_dtype=bfloat16|float32); "
+                        "under 'auto' a pin removes the candidates that touch its field")
     t.add_argument("--figures", action="store_true",
                    help="write spectrum/probability figures each eval epoch (needs matplotlib)")
     t.add_argument("--profile", action="store_true",
@@ -474,7 +504,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    args.command_line = "python -m sot_tpu_torch.cli " + shlex.join(argv)
     return args.fn(args)
 
 

@@ -7,6 +7,7 @@ they raise instead of quietly running on the CPU.
 
 from __future__ import annotations
 
+import subprocess
 from typing import Any, Dict, Hashable, Optional, Union
 
 import numpy as np
@@ -29,6 +30,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+def card_line(device: DeviceLike) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them; "cpu" for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True,
+                         timeout=60)
+    return out.stdout.strip().splitlines()[device.index or 0].strip()
 
 
 def set_precision_policy() -> None:

@@ -48,10 +48,9 @@ def w2_route(n_bins: int, kernels: Kernels = "auto") -> str:
     ``SMALL_N`` bins when it is set, else ``w2_merge``; ``off`` is the
     banded plane (``plane``).
 
-    ``auto`` (``cli train --kernels auto``) gives ``ref`` above ``SMALL_N``
-    bins and ``hybrid`` at or below (``kernel_gates.py:124-149``); the
-    committed outcome is written out because the A/Bs behind it were
-    measured on a TPU. ``default`` (no gate set) gives ``plane``."""
+    ``auto`` gives the route that ``kernel_gates.auto_gates`` adopts from
+    the committed H100 A/Bs (``sot_tpu_torch/adoption/``); ``default`` (no
+    gate set) gives ``plane``."""
     gates = resolve_gates(kernels)
     mode = gates.w2_merge
     if n_bins <= SMALL_N and gates.w2_merge_small:

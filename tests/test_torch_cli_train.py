@@ -36,8 +36,9 @@ TINY_KW = dict(n_samples=1024, cqt_fmin=261.6, batch_size=8, transform_n_fft=512
                transform_hop=128)
 TINY = [a for k, v in TINY_KW.items() for a in ("--set", f"{k}={v}")] + ["--dataset-size", "32"]
 CPU = ["--device", "cpu"]
-RUN_FILES = ["best_metrics.json", "checkpoints", "log.jsonl", "test_metrics.json",
-             "test_metrics_comb.json", "test_metrics_octcorr.json", "train_config.json"]
+RUN_FILES = ["best_metrics.json", "checkpoints", "kernel_gates.json", "log.jsonl",
+             "test_metrics.json", "test_metrics_comb.json", "test_metrics_octcorr.json",
+             "train_config.json"]
 
 
 @pytest.fixture(scope="module")

@@ -32,7 +32,8 @@ import jax.numpy as jnp  # noqa: E402
 from sot_tpu.models import encoder as jenc  # noqa: E402
 from sot_tpu_torch.configs import get_experiment  # noqa: E402
 from sot_tpu_torch.convert import grads_to_flax, params_from_flax  # noqa: E402
-from sot_tpu_torch.kernel_gates import PRESETS, KernelGates  # noqa: E402
+from sot_tpu_torch.kernel_gates import ADOPTION_DIR, PRESETS, KernelGates  # noqa: E402
+from sot_tpu_torch.kernel_gates import _convbf16_gate  # noqa: E402
 from sot_tpu_torch.models import encoder as tenc  # noqa: E402
 from sot_tpu_torch.training import trainer as ttrainer  # noqa: E402
 from tests._torch_parity import jax_init_params, rel_max_err  # noqa: E402
@@ -116,7 +117,9 @@ def test_conv_bf16_modules_activations_and_state_dict():
 
 
 def test_conv_bf16_gate_validated_off_in_presets_and_threaded():
-    assert not PRESETS["auto"].conv_bf16 and not PRESETS["default"].conv_bf16
+    assert PRESETS["auto"].conv_bf16 == _convbf16_gate(ADOPTION_DIR)
+    assert not PRESETS["default"].conv_bf16
+    assert not KernelGates(w2_merge="ref", w2_merge_small="hybrid").conv_bf16
     assert not KernelGates().conv_bf16
     with pytest.raises(ValueError, match="conv_bf16"):
         KernelGates(conv_bf16=1)
@@ -124,5 +127,5 @@ def test_conv_bf16_gate_validated_off_in_presets_and_threaded():
     mod = ttrainer.build_modules(cfg, device="cpu", kernels=KernelGates(conv_bf16=True))
     assert type(mod.encoder.conv1) is tenc.Bf16Conv1d
     assert type(mod.encoder.conv2) is tenc.Bf16Conv1d
-    auto = ttrainer.build_modules(cfg, device="cpu")
+    auto = ttrainer.build_modules(cfg, device="cpu", kernels="default")
     assert type(auto.encoder.conv2) is torch.nn.Conv1d

@@ -48,11 +48,11 @@ def test_evaluate_matches_jax(g, form):
 
 @pytest.mark.parametrize("shift", list(chip_smoke.CORRECTION_SHIFTS))
 def test_correction_factors_match_the_golden(g, shift):
-    mod = chip_smoke.build_modules(CFG, device=CPU)
+    mod = chip_smoke.build_modules(CFG, device=CPU, kernels=chip_smoke.JAX_AUTO)
     chip_smoke.correction_factors_check(mod, g, shift)
 
 
 @pytest.mark.parametrize("kernels", ["auto", "gated"])
 def test_predict_with_the_comb_correction(g, kernels):
     chip_smoke.predict_comb_check(CFG, CPU, g, chip_smoke.GATED if kernels == "gated"
-                                  else kernels)
+                                  else chip_smoke.JAX_AUTO)

@@ -43,7 +43,7 @@ from sot_tpu.configs import get_experiment as jax_get_experiment  # noqa: E402
 from sot_tpu.training import trainer as jtrainer  # noqa: E402
 from sot_tpu_torch.configs import get_experiment  # noqa: E402
 from sot_tpu_torch.convert import flat_from_tree, params_to_flax  # noqa: E402
-from sot_tpu_torch.kernel_gates import PRESETS, KernelGates, resolve_gates  # noqa: E402
+from sot_tpu_torch.kernel_gates import PRESETS, KernelGates, auto_gates, resolve_gates  # noqa: E402
 from sot_tpu_torch.models.encoder import KernelConv1d  # noqa: E402
 from sot_tpu_torch.ops import wasserstein as tw  # noqa: E402
 from sot_tpu_torch.ops.kernels import conv as kconv  # noqa: E402
@@ -51,7 +51,7 @@ from sot_tpu_torch.ops.kernels import merge as kmerge  # noqa: E402
 from sot_tpu_torch.ops.kernels import stft as kstft  # noqa: E402
 from sot_tpu_torch.training import trainer as ttrainer  # noqa: E402
 from tests import _torch_golden_gated  # noqa: E402
-from test_torch_train import TERMS, _check_terms, _port_term_grads  # noqa: E402
+from test_torch_train import JAX_AUTO, TERMS, _check_terms, _port_term_grads  # noqa: E402
 
 GATED = KernelGates(w2_merge="full", conv=True, stft_frontend=True)
 JAX_GATES = {k: v for k, v in _torch_golden_gated.GATES.items() if k != "SOT_TPU_MERGE_ROWS"}
@@ -61,14 +61,14 @@ LIMITS = {torch.float32: {"w1d": 2e-2, "mss": 2e-2, "total": 2e-2},
 
 def test_kernel_gates_presets_and_routes():
     assert resolve_gates("default") == KernelGates() == PRESETS["default"]
-    assert resolve_gates("auto") == KernelGates(w2_merge="ref", w2_merge_small="hybrid")
+    assert resolve_gates("auto") == auto_gates() == PRESETS["auto"]
     assert resolve_gates(GATED) is GATED
-    for gates, small, large in (("auto", "hybrid", "ref"), ("default", "plane", "plane"),
+    for gates, small, large in ((JAX_AUTO, "hybrid", "ref"), ("default", "plane", "plane"),
                                 (GATED, "full", "full"),
                                 (KernelGates(w2_merge="off", w2_merge_small="full"), "full",
                                  "plane")):
         assert (tw.w2_route(257, gates), tw.w2_route(1025, gates)) == (small, large)
-    assert GATED.conv_dtype == torch.bfloat16 and not PRESETS["auto"].conv
+    assert GATED.conv_dtype == torch.bfloat16 and not JAX_AUTO.conv
     with pytest.raises(ValueError, match="kernels must be"):
         resolve_gates("full")
     with pytest.raises(ValueError, match="w2_merge"):
@@ -90,7 +90,9 @@ def test_build_modules_threads_the_gates():
     assert all(fn.kernels is GATED for _, fn, _ in mod.loss_fns)
     plain = ttrainer.build_modules(cfg, device="cpu")
     assert plain.kernels == PRESETS["auto"]
-    assert type(plain.encoder.conv1) is torch.nn.Conv1d
+    assert isinstance(plain.encoder.conv1, KernelConv1d) is PRESETS["auto"].conv
+    assert type(ttrainer.build_modules(cfg, device="cpu", kernels="default").encoder.conv1) \
+        is torch.nn.Conv1d
     assert plain.encoder.state_dict().keys() == mod.encoder.state_dict().keys()
 
 
@@ -163,7 +165,7 @@ def test_gated_path_reaches_every_kernel_wrapper(monkeypatch):
     """On the CPU the wrappers run their plain versions; counted here
     through the wrappers' entry points: the conv forward and weight
     gradient, the frontend and the coupling gradient each run in a gated
-    step, and not in an ``auto`` step."""
+    step, and not in a JAX_AUTO step."""
     calls = {"conv": 0, "dw": 0, "stft": 0, "b8": 0}
 
     def counted(name, fn):
@@ -178,7 +180,7 @@ def test_gated_path_reaches_every_kernel_wrapper(monkeypatch):
     monkeypatch.setattr(tw, "coupling_grads", counted("b8", kmerge.coupling_grads))
     cfg = _tiny_cfg(get_experiment)
     x = torch.from_numpy(_tiny_audio(batch=2, seed=1))
-    for kernels, expect in (("auto", {"conv": 0, "dw": 0, "stft": 0, "b8": 0}),
+    for kernels, expect in ((JAX_AUTO, {"conv": 0, "dw": 0, "stft": 0, "b8": 0}),
                             # conv1 + prefilt forward and dx; their dW; the loss
                             # STFT and MSS 512/128 of x and x_hat; one coupling
                             (GATED, {"conv": 4, "dw": 2, "stft": 4, "b8": 1})):

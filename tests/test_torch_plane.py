@@ -26,12 +26,16 @@ import jax.numpy as jnp  # noqa: E402
 import chip_smoke  # noqa: E402
 from sot_tpu.kernel_gates import auto_gates  # noqa: E402
 from sot_tpu.ops.pallas import sot as jsot  # noqa: E402
+from sot_tpu_torch.kernel_gates import ADOPTION_DIR, KernelGates  # noqa: E402
 from sot_tpu_torch.losses import Wasserstein1D  # noqa: E402
 from sot_tpu_torch.ops import wasserstein as tw  # noqa: E402
 from sot_tpu_torch.ops.kernels import plane as kplane  # noqa: E402
 from test_torch_sot import _same_cap_rows  # noqa: E402
 
 GATES = ("SOT_TPU_W2_MERGE", "SOT_TPU_W2_MERGE_SMALL", "SOT_TPU_MERGE_ROWS", "SOT_TPU_W2_SMALL_N")
+# the SOT routes of the JAX package's committed gates (auto_gates() on
+# results/round2): ref above 512 bins, hybrid at or below
+JAX_AUTO = KernelGates(w2_merge="ref", w2_merge_small="hybrid")
 
 
 @pytest.fixture(autouse=True)
@@ -138,12 +142,19 @@ def test_plane_plain_chunks_agree_with_one_chunk(monkeypatch):
 
 @pytest.mark.parametrize("n_bins", [257, 1025])
 def test_w2_route_follows_the_jax_gates(monkeypatch, n_bins):
-    """``auto`` is JAX's ``_merge_mode`` under the committed gates
-    (``auto_gates()`` on ``results/round2``), ``default`` its mode with no
-    gate set ("off": the plane kernels)."""
+    """JAX_AUTO is JAX's ``_merge_mode`` under its committed gates
+    (``auto_gates()`` on ``results/round2``), the port's ``auto`` JAX's mode
+    under JAX's rule on the port's adoption files, ``default`` its mode with
+    no gate set ("off": the plane kernels)."""
     for k, v in auto_gates().items():
         monkeypatch.setenv(k, v)
-    assert tw.w2_route(n_bins, "auto") == jsot._merge_mode(n_bins)
+    assert tw.w2_route(n_bins, JAX_AUTO) == jsot._merge_mode(n_bins)
+    for k in GATES:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in auto_gates(ADOPTION_DIR).items():
+        monkeypatch.setenv(k, v)
+    mode = jsot._merge_mode(n_bins)
+    assert tw.w2_route(n_bins, "auto") == ("plane" if mode == "off" else mode)
     for k in GATES:
         monkeypatch.delenv(k, raising=False)
     assert jsot._merge_mode(n_bins) == "off"
@@ -168,10 +179,11 @@ def _spectra(rows, n, seed):
 # (port kernels, JAX gates, JAX use_pallas, p): each port route and the JAX
 # route that computes the same function on the CPU
 ROUTES = {
-    "ref": ("auto", {"SOT_TPU_W2_MERGE": "ref"}, None, 2.0),
-    "hybrid": ("auto", {"SOT_TPU_W2_MERGE": "ref", "SOT_TPU_W2_MERGE_SMALL": "hybrid"}, None, 2.0),
+    "ref": (JAX_AUTO, {"SOT_TPU_W2_MERGE": "ref"}, None, 2.0),
+    "hybrid": (JAX_AUTO, {"SOT_TPU_W2_MERGE": "ref", "SOT_TPU_W2_MERGE_SMALL": "hybrid"}, None,
+               2.0),
     "plane": ("default", {}, True, 2.0),
-    "plane p=3": ("auto", {"SOT_TPU_W2_MERGE": "ref", "SOT_TPU_W2_MERGE_SMALL": "hybrid"}, True,
+    "plane p=3": (JAX_AUTO, {"SOT_TPU_W2_MERGE": "ref", "SOT_TPU_W2_MERGE_SMALL": "hybrid"}, True,
                   3.0),
 }
 
@@ -191,9 +203,9 @@ def test_wasserstein_same_grid_routes_match_jax(monkeypatch, route, target_const
     for k, val in gates.items():
         monkeypatch.setenv(k, val)
     if route == "ref":
-        # the port's ``auto`` sends rows this narrow to ``hybrid``: lower its
+        # JAX_AUTO sends rows this narrow to ``hybrid``: lower its
         # threshold, as JAX without ``SOT_TPU_W2_MERGE_SMALL`` has none
-        assert tw.w2_route(n, "auto") == "hybrid"
+        assert tw.w2_route(n, JAX_AUTO) == "hybrid"
         monkeypatch.setattr(tw, "SMALL_N", 16)
     assert jsot._merge_mode(n) == {"ref": "ref", "hybrid": "hybrid", "plane": "off",
                                    "plane p=3": "hybrid"}[route]
@@ -231,8 +243,8 @@ def test_skill_golden_through_the_default_wasserstein1d():
     verification recipe): 3-harmonic tones (``oscillator_bank``, amplitudes
     0.5, 4096 samples at 16 kHz) at 220 and 210 Hz, flattop 2048/256 spectra
     on rfftfreq/max positions, ``Wasserstein1D(p=2, square_dist, dont_normalize,
-    limit_quantile_range)`` with a live target (the ``ref`` route turned
-    ``hybrid``). On the JAX package's spectra the port's loss is 0.064275
+    limit_quantile_range)`` on JAX_AUTO with a live target (the ``ref``
+    route turned ``hybrid``), and on the port's ``auto``. On the JAX package's spectra the port's loss is 0.064275
     within 1e-7 (the torch oracle's 0.06427490); the port's own synthesis
     sums its phases in float64, not in f32, which moves the spectra by
     ~4e-5 and the loss to ~0.0642871: there both packages' losses agree
@@ -257,10 +269,12 @@ def test_skill_golden_through_the_default_wasserstein1d():
     pos = rfft_frequencies(2048, 16000)
     pos = (pos / pos.max()).astype(np.float32)
     kw = dict(p=2, square_dist=True, dont_normalize=True, limit_quantile_range=True)
-    fn, jfn = Wasserstein1D(**kw), JaxWasserstein1D(**kw)
-    assert not fn.target_constant and tw.w2_route(len(pos)) == "ref"
+    fn, jfn = Wasserstein1D(**kw, kernels=JAX_AUTO), JaxWasserstein1D(**kw)
+    assert not fn.target_constant and tw.w2_route(len(pos), JAX_AUTO) == "ref"
 
     sa, sb = jax_spec(220.0).requires_grad_(True), jax_spec(210.0).requires_grad_(True)
+    auto = float(Wasserstein1D(**kw)(sa, sb, x_pos=pos, y_pos=pos).detach())
+    assert abs(auto - 0.0642749) <= 1e-7, auto
     loss = fn(sa, sb, x_pos=pos, y_pos=pos)
     assert abs(float(loss.detach()) - 0.0642749) <= 1e-7, float(loss.detach())
     loss.backward()

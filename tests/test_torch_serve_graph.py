@@ -90,7 +90,12 @@ def test_weight_addresses_follow_replacement_not_reloads():
 # ---------------------------------------------------------------------------
 
 GATED = KernelGates(w2_merge="full", conv=True, stft_frontend=True)
-ROUTES = {"auto": ("auto", {}), "auto-comb": ("auto", {"inference_comb_correction": True}),
+# the SOT routes of the JAX package's committed gates (its ``auto``): ref
+# above 512 bins, hybrid at or below; named so that what is held against
+# JAX's records does not move with the port's adoption files
+JAX_AUTO = KernelGates(w2_merge="ref", w2_merge_small="hybrid")
+ROUTES = {"auto": (JAX_AUTO, {}),
+          "auto-comb": (JAX_AUTO, {"inference_comb_correction": True}),
           "gated-octave": (GATED, {"inference_octave_correction": True})}
 
 

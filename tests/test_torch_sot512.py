@@ -36,7 +36,7 @@ from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat,  # noqa:
 from sot_tpu_torch.kernel_gates import resolve_gates  # noqa: E402
 from sot_tpu_torch.training import trainer as ttrainer  # noqa: E402
 from tests import _torch_golden_sot512  # noqa: E402
-from test_torch_train import TERMS, _max_rel, _port, _port_term_grads  # noqa: E402
+from test_torch_train import JAX_AUTO, TERMS, _max_rel, _port, _port_term_grads  # noqa: E402
 
 GRAD_LIMITS = {"w1d": 3e-2, "mss": 1.5e-1, "total": 1.5e-1}
 LOSS_LIMITS = {"w1d": 3e-4, "mss": 1e-4, "total": 1e-4}
@@ -65,7 +65,7 @@ def test_compute_loss_matches_jax(name):
     x = g["x"][:2]
     params = _params(g)
     mod = _port(params, get_experiment(name))
-    assert mod.kernels == resolve_gates("auto") and len(mod.x_pos) == 257
+    assert mod.kernels == JAX_AUTO and len(mod.x_pos) == 257
     port, _ = _port_term_grads(mod, x)
     jmod = jtrainer.build_modules(jax_get_experiment(name))
     names = list(TERMS.values())
@@ -87,7 +87,7 @@ def test_compute_loss_matches_jax(name):
 
 
 def test_routes_give_one_loss_and_gradient():
-    """``auto`` (hybrid: merge forward) and ``default`` (plane: the plane
+    """JAX_AUTO (hybrid: merge forward) and ``default`` (plane: the plane
     forward) give the same SOT-512 loss within 1e-5 and the same gradient
     within 1e-5 of its max: the two forwards compute one function, the two
     backwards are one kernel."""
@@ -95,13 +95,13 @@ def test_routes_give_one_loss_and_gradient():
     x = g["x"][:2]
     state = params_from_flax(_params(g))
     out = {}
-    for kernels in ("auto", "default"):
+    for name, kernels in (("auto", JAX_AUTO), ("default", "default")):
         mod = ttrainer.build_modules(get_experiment("SOT-512"), device="cpu", kernels=kernels)
         mod.encoder.load_state_dict(state)
         sot = [fn for kind, fn, _ in mod.loss_fns if kind == "wasserstein"]
         gates = resolve_gates(kernels)
         assert mod.kernels == gates and [fn.kernels for fn in sot] == [gates]
-        out[kernels] = _port_term_grads(mod, x)[0]["w1d"]
+        out[name] = _port_term_grads(mod, x)[0]["w1d"]
     (la, ga), (ld, gd) = out["auto"], out["default"]
     assert abs(la - ld) <= 1e-5 * abs(ld)
     assert max(_max_rel(ga, gd).values()) <= 1e-5
@@ -143,7 +143,7 @@ def test_eval_all_is_the_mean_of_the_eval_steps():
     # the corrections are ported (ROADMAP A1): the corrected eval step gives
     # the same metrics, its loss terms unchanged
     octcorr = ttrainer.build_modules(get_experiment("SOT-512", eval_octave_correction=True),
-                                     device="cpu")
+                                     device="cpu", kernels=JAX_AUTO)
     octcorr.encoder.load_state_dict(mod.encoder.state_dict())
     corrected = ttrainer.make_eval_step(octcorr)(xs[0], f0s[0])
     assert set(corrected) == set(steps[0])

@@ -34,9 +34,14 @@ from sot_tpu_torch import data as tdata  # noqa: E402
 from sot_tpu_torch.configs import get_experiment  # noqa: E402
 from sot_tpu_torch.convert import (flat_from_tree, flax_tree_from_flat,  # noqa: E402
                                    grads_to_flax, params_from_flax, params_to_flax)
+from sot_tpu_torch.kernel_gates import KernelGates  # noqa: E402
 from sot_tpu_torch.training import trainer as ttrainer  # noqa: E402
 from tests import _torch_golden, _torch_golden_train  # noqa: E402
 
+# the SOT routes of the JAX package's committed gates (its ``auto``): ref
+# above 512 bins, hybrid at or below; named so that what is held against
+# JAX's records does not move with the port's adoption files
+JAX_AUTO = KernelGates(w2_merge="ref", w2_merge_small="hybrid")
 GRAD_LIMITS = {"w1d": 2e-2, "mss": 1.5e-1, "total": 1.5e-1}
 TERMS = {"total": "loss/total", "mss": "loss/MSSLoss", "w1d": "loss/Wasserstein1D"}
 
@@ -46,8 +51,10 @@ def _golden_params():
         return flax_tree_from_flat({k: z[k] for k in z.files})
 
 
-def _port(params, cfg):
-    mod = ttrainer.build_modules(cfg, device="cpu")
+def _port(params, cfg, kernels=None):
+    """The port's modules for ``cfg`` on the CPU with JAX's ``params``, on
+    ``kernels`` (default: JAX_AUTO)."""
+    mod = ttrainer.build_modules(cfg, device="cpu", kernels=kernels or JAX_AUTO)
     mod.encoder.load_state_dict(params_from_flax(params))
     return mod
 
