@@ -1,0 +1,11 @@
+"""Device-idle milliseconds a step inside the program's
+``sot.train.replays`` spans (``trainer.TrainGraph``: the device step set,
+the graph replayed once an offset, the launch counting): the spans' length
+less the device's busy time in them, over the traced window's steps.
+Moves train_frames_per_s."""
+
+from portbench import spans
+
+
+def read(trace):
+    return spans.idle_ms_per_step(trace, "sot.train.replays")

@@ -67,6 +67,7 @@ from sot_tpu_torch.ops.numerics import get_cqt_n_bins, hz_to_unit, unit_to_hz
 from sot_tpu_torch.training import checkpoint as ckpt_lib
 from sot_tpu_torch.training.logging import JsonlLogger
 from sot_tpu_torch.training.observability import FigureLogger
+from sot_tpu_torch.training.profiling import span
 
 
 @dataclasses.dataclass
@@ -488,7 +489,8 @@ class TrainGraph:
     the last step's logs, the graph's own output tensors (overwritten by the
     next replay). Each kernel wrapper's launch count advances by its
     launches in the capture times the replays (``ops/kernels/launches.py``).
-    A capture that fails raises.
+    A capture that fails raises. A call, its upload and its replays are
+    spans of a running profiler's trace (``profiling.SPANS``).
     """
 
     def __init__(self, mod: Modules, state: TrainState, x_all: torch.Tensor):
@@ -533,24 +535,27 @@ class TrainGraph:
                                   self.step, self.lr)
 
     def __call__(self, offsets: Sequence[int]) -> Dict[str, torch.Tensor]:
-        offsets = np.asarray(offsets, np.int64)
-        bs = self.mod.config.batch_size
-        if len(offsets) == 0 or offsets.min() < 0 or offsets.max() + bs > self.x_all.shape[0]:
-            raise ValueError(f"TrainGraph: {len(offsets)} offsets, each in "
-                             f"[0, {self.x_all.shape[0] - bs}]")
-        # an epoch's offsets fit the buffer; a longer chunk goes in pieces
-        for lo in range(0, len(offsets), self.capacity):
-            piece = offsets[lo:lo + self.capacity]
-            k = len(piece)
-            self.offsets[:k].copy_(torch.from_numpy(piece))
-            self._prime()
-            for _ in range(k):
-                self.graph.replay()
-            launches_lib.add(self.launches, k)
-            self.state.step += k
-            for _ in range(k):
-                self.state.scheduler.step()
-        return self.logs
+        with span("sot.train.chunk"):
+            offsets = np.asarray(offsets, np.int64)
+            bs = self.mod.config.batch_size
+            if len(offsets) == 0 or offsets.min() < 0 or offsets.max() + bs > self.x_all.shape[0]:
+                raise ValueError(f"TrainGraph: {len(offsets)} offsets, each in "
+                                 f"[0, {self.x_all.shape[0] - bs}]")
+            # an epoch's offsets fit the buffer; a longer chunk goes in pieces
+            for lo in range(0, len(offsets), self.capacity):
+                piece = offsets[lo:lo + self.capacity]
+                k = len(piece)
+                with span("sot.train.upload"):
+                    self.offsets[:k].copy_(torch.from_numpy(piece))
+                with span("sot.train.replays"):
+                    self._prime()
+                    for _ in range(k):
+                        self.graph.replay()
+                    launches_lib.add(self.launches, k)
+                self.state.step += k
+                for _ in range(k):
+                    self.state.scheduler.step()
+            return self.logs
 
 
 def train_steps_graph(mod: Modules, state: TrainState, x_all: torch.Tensor,
@@ -781,7 +786,9 @@ class PredictGraph:
     parameter tensor was replaced (``reads``). Warmed up on a side stream
     first, so the capture launches nothing new (the device constants, the
     CQT tile plan, the synth's tables, cuFFT plans); a capture that fails
-    raises. Launch counts advance per replay as in ``TrainGraph``.
+    raises. Launch counts advance per replay as in ``TrainGraph``. The copy
+    in, the replay and the clones are spans of a running profiler's trace
+    (``profiling.SPANS``).
     """
 
     def __init__(self, mod: Modules, x: torch.Tensor, octave_correction: bool):
@@ -812,10 +819,13 @@ class PredictGraph:
 
     def __call__(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            self.x.copy_(x)
-            self.graph.replay()
-            launches_lib.add(self.launches)
-            return {k: v.clone() for k, v in self.out.items()}
+            with span("sot.predict.copy_in"):
+                self.x.copy_(x)
+            with span("sot.predict.replay"):
+                self.graph.replay()
+                launches_lib.add(self.launches)
+            with span("sot.predict.clone_out"):
+                return {k: v.clone() for k, v in self.out.items()}
 
 
 def predict(mod: Modules, x, octave_correction: Optional[bool] = None
@@ -830,22 +840,26 @@ def predict(mod: Modules, x, octave_correction: Optional[bool] = None
 
     On the GPU each (input shape, ``octave_correction``) is one
     ``PredictGraph`` in ``mod.serve_graphs``, captured at its first request
-    and replayed for the next; on the CPU the same body runs eagerly.
+    and replayed for the next; on the CPU the same body runs eagerly. The
+    call, and a capture in it, are spans of a running profiler's trace
+    (``profiling.SPANS``).
     """
-    if octave_correction is None:
-        octave_correction = mod.config.inference_octave_correction
-    octave_correction = bool(octave_correction)
-    if mod.device.type != "cuda":
-        with torch.inference_mode():
-            x = torch.as_tensor(x, dtype=torch.float32, device=mod.device)
-            return _predict_body(mod, x, octave_correction)
-    x = torch.as_tensor(x, dtype=torch.float32)
-    key = (tuple(x.shape), octave_correction)
-    graph = mod.serve_graphs.get(key)
-    if graph is None or not graph.reads(mod):
-        mod.serve_graphs.pop(key, None)  # a replaced weight: free the old graph first
-        graph = mod.serve_graphs[key] = PredictGraph(mod, x, octave_correction)
-    return graph(x)
+    with span("sot.predict"):
+        if octave_correction is None:
+            octave_correction = mod.config.inference_octave_correction
+        octave_correction = bool(octave_correction)
+        if mod.device.type != "cuda":
+            with torch.inference_mode():
+                x = torch.as_tensor(x, dtype=torch.float32, device=mod.device)
+                return _predict_body(mod, x, octave_correction)
+        x = torch.as_tensor(x, dtype=torch.float32)
+        key = (tuple(x.shape), octave_correction)
+        graph = mod.serve_graphs.get(key)
+        if graph is None or not graph.reads(mod):
+            mod.serve_graphs.pop(key, None)  # a replaced weight: free the old graph first
+            with span("sot.predict.capture"):
+                graph = mod.serve_graphs[key] = PredictGraph(mod, x, octave_correction)
+        return graph(x)
 
 
 # ---------------------------------------------------------------------------

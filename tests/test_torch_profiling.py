@@ -9,7 +9,9 @@ profiling module on ``torch.profiler``) and ``cli train --profile``:
     the summaries read, with no device events, so the table says "not
     measured" and prints no zero;
   * ``cli train --profile`` on the CPU: the trace under ``<out>/trace``,
-    the table, and the run going on to train as without the flag.
+    the table, and the run going on to train as without the flag;
+  * the table of the port's spans (``summarize_spans``) on a written trace,
+    with and without device events.
 """
 
 from __future__ import annotations
@@ -109,6 +111,49 @@ def test_print_trace_summary_layout(tmp_path, capsys):
     assert lines[cut + 1].startswith("   0.300 ms/step  [kernel: csrc (hand-written)] void cqt")
     assert len(lines) - cut - 1 == 4
     assert not any(line.lstrip().startswith("0.000") for line in lines)
+
+
+SPAN_EVENTS = [
+    # (cat, name, ts us, dur us): a chunk of 2 steps, its upload partly
+    # drained into, its replays over one long kernel
+    ("user_annotation", "sot.train.chunk", 0.0, 1000.0),
+    ("user_annotation", "sot.train.upload", 0.0, 100.0),
+    ("user_annotation", "sot.train.replays", 100.0, 900.0),
+    ("user_annotation", "not.a.program.span", 0.0, 500.0),
+    ("gpu_user_annotation", "sot.train.replays", 150.0, 800.0),
+    ("cpu_op", "aten::copy_", 10.0, 80.0),
+    ("kernel", "step", 50.0, 30.0),
+    ("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 60.0, 10.0),
+    ("kernel", "step", 150.0, 800.0),
+]
+
+
+@pytest.mark.parametrize("device", [True, False])
+def test_program_spans_of_a_written_trace(tmp_path, capsys, device):
+    """The ``# program spans`` table: count, host ms and device-idle ms a
+    step inside each of the port's spans (the device's intervals unioned
+    within the span); "not measured" where the trace saw no device."""
+    log_dir = str(tmp_path / "trace")
+    events = [e for e in SPAN_EVENTS if device or e[0] not in profiling.DEVICE_CATEGORIES]
+    os.makedirs(log_dir)
+    with gzip.open(os.path.join(log_dir, "host.1.pt.trace.json.gz"), "wt") as fh:
+        json.dump({"traceEvents": [{"ph": "X", "cat": c, "name": n, "pid": 0, "tid": 7,
+                                    "ts": ts, "dur": d} for c, n, ts, d in events]}, fh)
+    rows = profiling.summarize_spans(log_dir, steps=2)
+    assert [r[:2] for r in rows] == [("sot.train.chunk", 1), ("sot.train.upload", 1),
+                                     ("sot.train.replays", 1)]
+    assert [r[2] for r in rows] == pytest.approx([0.5, 0.05, 0.45])
+    if device:
+        assert [r[3] for r in rows] == pytest.approx([0.085, 0.035, 0.05])
+    else:
+        assert [r[3] for r in rows] == [None] * 3
+    profiling.print_trace_summary(log_dir, steps=2)
+    lines = capsys.readouterr().out.splitlines()
+    cut = lines.index("# program spans (count, host ms/step, device-idle ms/step inside):")
+    idle = ["0.085", "0.035", "0.050"] if device else ["not measured"] * 3
+    assert lines[cut + 1:] == [
+        f"{1:6d} {host:8.3f} {gap:>12}  {name}" for (name, _, host, _), gap in zip(rows, idle)]
+    assert (lines[0] == "# by device category:") == device
 
 
 def test_no_trace_raises(tmp_path):
