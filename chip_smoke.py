@@ -14,10 +14,11 @@ the evaluation as CUDA graphs, the served model as a CUDA graph, and the
 kernel adoption (``auto`` from the committed H100 A/Bs and verdicts).
 
     python3 chip_smoke.py [--ab-parent PATH/{plane,merge,refgrad}.cu ...]
+    python3 chip_smoke.py --phase conv-f32   # device, build and [conv-f32] alone
 
 Phases (any failure raises and the script exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
-  2. build   — compile csrc/{cqt,synth,merge,refgrad,plane,stft,conv}.cu
+  2. build   — compile csrc/{cqt,synth,merge,refgrad,plane,stft,conv,conv_f32}.cu
                (sm_90a) in parallel: eleven kernels (synth.cu, merge.cu,
                plane.cu and conv.cu hold two each)
   3. kernels — each slice-1 kernel against its plain PyTorch version on the
@@ -191,8 +192,19 @@ Phases (any failure raises and the script exits non-zero):
                steps), SOT-512 under GATED 4 steps, SOT-2048 under CONV_BF16
                (auto with the bf16 conv stack, JAX's SOT_TPU_CONV_BF16) 4
                steps; then, information only, the device busy ms of one
-               SOT-2048 step under auto (cuDNN f32 convs) beside CONV_F32
-               (kernels 10 and 11 in 3xTF32), profiled in turns
+               SOT-2048 step under auto (the f32 conv kernels) beside
+               CONV_F32 (kernels 10 and 11 in 3xTF32), profiled in turns;
+               every route without the conv gate or conv_bf16 launches the
+               f32 conv kernels (csrc/conv_f32.cu) 4 + 2 times a step
+ 10b. conv-f32 — before the train runs, the k = 15 convs' f32 kernels on
+               the train step's real operands (the SOT-2048 golden weights,
+               a seeded batch, dy from the real loss): conv1's and the
+               prefilter's forward, dx and dW each within 2x cuDNN f32's
+               error against float64 and bit-equal across two launches,
+               device ms beside the FP32-core bound, cuDNN's and kernels
+               10-11's in 3xTF32; one replay of the auto train graph names
+               both kernels and none of cuDNN's k = 15 kernels, the graph
+               counts 4 + 2 a step and the served graph 2 a request
  10a. train-graph — the train step as one CUDA graph (trainer.TrainGraph):
                capturable Adam against the plain Adam on the gradients of 4
                real steps (information); then on SOT-2048 auto, default and
@@ -492,7 +504,7 @@ CONV_LIMIT = 1e-5
 # on the JAX_AUTO routes: 4 SOT-2048 steps on the card, its loss printed
 CONV_BF16 = dataclasses.replace(JAX_AUTO, conv_bf16=True)
 # JAX_AUTO with the k > 1 convs on kernels 10 and 11 in f32 (3xTF32), against
-# cuDNN's f32 convs: an information-only in-step reading
+# the f32 conv kernels (csrc/conv_f32.cu): an information-only in-step reading
 CONV_F32 = dataclasses.replace(JAX_AUTO, conv=True, conv_dtype=torch.float32)
 # the labels of named gates in printed lines
 GATE_LABELS = {JAX_AUTO: "jax-auto", GATED: "gated", CONV_BF16: "jax-auto+conv_bf16",
@@ -2527,6 +2539,173 @@ def check_conv(dev, rng):
     return [entries["fwd"], entries["dw"]]
 
 
+# the f32 route of the k = 15 convs (csrc/conv_f32.cu): every preset without
+# the conv gate or conv_bf16 runs it in the encoder
+F32_CONV = ("conv1d_f32_forward", "conv1d_f32_weight")
+
+
+def f32_conv_on(kernels) -> tuple:
+    """F32_CONV when the encoder of ``kernels`` (gates or a preset name) runs
+    its k = 15 convs on the f32 kernels, else ()."""
+    gates = trainer.resolve_gates(kernels)
+    return () if gates.conv or gates.conv_bf16 else F32_CONV
+
+
+def conv_f32_activations(cfg, dev):
+    """The k = 15 convs' real operands: the SOT-2048 golden weights, a seeded
+    64-clip batch through CQT, LayerNorm and conv1 (eval mode), and dy at
+    conv1's and the prefilter's outputs from the real SOT-2048 loss. Returns
+    the modules and {layer: (input, weight, bias, dy)}."""
+    mod = build_modules(cfg, device=dev, kernels="auto")
+    load_golden_weights(mod)
+    x = torch.from_numpy(make_requests(cfg, dev, 1, seed=4000)[0]).to(dev)
+    taps = {}
+
+    def keep(name):
+        def hook(module, inputs, output):
+            output.retain_grad()
+            taps[name] = (module, inputs[0].detach(), output)
+        return hook
+
+    layers = {"conv1": mod.encoder.conv1, "prefilt": mod.encoder.prefilt[0]}
+    handles = [m.register_forward_hook(keep(n)) for n, m in layers.items()]
+    try:
+        total, _ = trainer.compute_loss(mod, x, train=False)
+        total.backward()
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    return mod, {n: (inp, m.weight.detach(), m.bias.detach(), out.grad.detach())
+                 for n, (m, inp, out) in taps.items()}
+
+
+def check_conv_f32(cfg, dev, x_all) -> list:
+    """[conv-f32]: the f32 kernels of the k = 15 convs (csrc/conv_f32.cu) on
+    the train step's real operands (``conv_f32_activations``): each pass
+    (conv1 and the prefilter: forward, dx, dW) against float64, within 2x
+    cuDNN f32's own error, two launches bit-equal; device ms per pass beside
+    the FP32-core bound, cuDNN's (library) and kernels 10-11's in 3xTF32;
+    then one replay of the ``auto`` train graph: both kernels by name in its
+    trace, no cuDNN kernel of the k = 15 convs (the names cuDNN launches for
+    them alone, less those it also launches for the 1x1 convs), the graph's
+    counts per step (4 + 2) and the served graph's (2).
+    Returns the prefilter's JSON entries."""
+    from torch.nn.grad import conv1d_input, conv1d_weight
+    t_phase = time.perf_counter()
+    mod, ops = conv_f32_activations(cfg, dev)
+    entries = {}
+    for layer, (x, w, b, dy) in ops.items():
+        k = w.shape[-1]
+        pad = (k - 1) // 2
+        x64, w64, b64, dy64 = (t.double() for t in (x, w, b, dy))
+        passes = {
+            "forward": (lambda: kconv.conv1d_f32_forward(x, w, b),
+                        lambda: torch.nn.functional.conv1d(x, w, b, padding=pad),
+                        lambda: torch.nn.functional.conv1d(x64, w64, b64, padding=pad),
+                        lambda: kconv.conv1d_forward(x, w, torch.float32),
+                        "conv_f32_fwd_kernel", 1, "conv_fwd_mma_kernel", 1),
+            "dx": (lambda: kconv.conv1d_f32_forward(dy, w, None, transposed=True),
+                   lambda: conv1d_input(x.shape, w, dy, padding=pad),
+                   lambda: conv1d_input(x.shape, w64, dy64, padding=pad),
+                   lambda: kconv.conv1d_forward(dy, w.flip(-1).transpose(0, 1), torch.float32),
+                   "conv_f32_fwd_kernel", 1, "conv_fwd_mma_kernel", 1),
+            "dW": (lambda: kconv.conv1d_f32_weight(x, dy, k),
+                   lambda: conv1d_weight(x, w.shape, dy, padding=pad),
+                   lambda: conv1d_weight(x64, w.shape, dy64, padding=pad),
+                   lambda: kconv.conv1d_weight(x, dy, k, torch.float32),
+                   "conv_f32_dw", 2, "conv_dw_", 2),
+        }
+        rows, cin, width = x.shape
+        cout = w.shape[0]
+        flops = 2.0 * rows * cin * cout * k * width
+        for name, (new, lib, ref, b1011, kname, kper, oname, oper) in passes.items():
+            got, again, cud, r64 = new(), new(), lib(), ref()
+            torch.cuda.synchronize()
+            e_new, e_lib = f64_rel(got, r64), f64_rel(cud, r64)
+            same = torch.equal(got, again)
+            io = x.numel() + dy.numel() + w.numel()
+            bound_ms, bound_by = roofline(flops, 4.0 * io)
+            ms = {"kernel": device_ms(lambda: new(), [()], kname, kper),
+                  "events": median_ms(lambda: new(), [()]),
+                  "library": device_ms(lambda: lib(), [()], None),
+                  "kernels 10-11 3xTF32": device_ms(lambda: b1011(), [()], oname, oper)}
+            print(f"[conv-f32] {layer} {name} x {tuple(x.shape)} -> C_out {cout}, k {k}: "
+                  f"against float64 {e_new:.3e}, cuDNN f32 {e_lib:.3e} (limit 2x: "
+                  f"{e_new / e_lib if e_lib else float('inf'):.2f}x); two launches bit-equal: "
+                  f"{same}; device ms {ms['kernel']:.4f} (events {ms['events']:.4f}), FP32 bound "
+                  f"{bound_ms:.4f} ({bound_by}, {100 * bound_ms / ms['kernel']:.1f}% of it), "
+                  f"cuDNN {ms['library']:.4f}, kernels 10-11 3xTF32 "
+                  f"{ms['kernels 10-11 3xTF32']:.4f} | {card_line()}")
+            require(bool(torch.isfinite(got).all()), f"conv-f32 {layer} {name}: non-finite")
+            require(e_new <= 2.0 * e_lib, f"conv-f32 {layer} {name}: float64 error {e_new:.3e} "
+                                          f"above 2x cuDNN f32's {e_lib:.3e}")
+            require(same, f"conv-f32 {layer} {name}: two launches differ")
+            if layer == "prefilt" and name in ("forward", "dW"):
+                entries[name] = {
+                    "name": "conv1d_f32_forward" if name == "forward" else "conv1d_f32_weight",
+                    "route": "cuda", "source": "sot_tpu_torch/csrc/conv_f32.cu",
+                    "replaces": "none (cuDNN f32 on the default route)", "ms": ms["events"],
+                    "device_ms": ms["kernel"], "plain_ms": ms["library"],
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": ms["library"],
+                    "max_abs_err": float((got - r64).abs().max())}
+
+    # cuDNN's kernels for the k = 15 convs alone, forward and backward, less
+    # those it also launches for the 1x1 convs
+    def layer_names(what, make):
+        torch.manual_seed(0)
+        layers = make()
+        a = torch.randn(BATCH * 16, layers[0].in_channels, 285, device=dev, requires_grad=True)
+
+        def run():
+            y = a
+            for m in layers:
+                y = m(y)
+            y.square().sum().backward()
+        run()
+        profile_device(what, run, top=0)
+        return DEVICE_NAMES.get(what, set())
+
+    wide = layer_names("cuDNN k = 15 convs (conv1, prefilter)", lambda: [
+        torch.nn.Conv1d(1, 40, 15, padding=7).to(dev), torch.nn.Conv1d(40, 40, 15, padding=7)
+        .to(dev)])
+    narrow = layer_names("cuDNN 1x1 convs (conv2 .. conv4b)", lambda: [
+        torch.nn.Conv1d(40, 30, 1).to(dev), torch.nn.Conv1d(30, 30, 1).to(dev),
+        torch.nn.Conv1d(30, 10, 1).to(dev), torch.nn.Conv1d(10, 3, 1).to(dev)])
+    conv_like = re.compile(r"conv|fprop|dgrad|wgrad|implicit_gemm|implicit_convolve|cudnn",
+                           re.IGNORECASE)
+    wide_only = {n for n in wide - narrow if conv_like.search(n)}
+    print(f"[conv-f32] cuDNN's kernels of the k = 15 convs alone: {sorted(n[:70] for n in wide)}"
+          f"; also in the 1x1 convs: {sorted(n[:70] for n in wide & narrow)}")
+
+    state = trainer.init_state(mod)
+    graph = state.graph = trainer.TrainGraph(mod, state, x_all)
+    per_step = {k: graph.launches[k] for k in F32_CONV}
+    _, seen = replay_kernels("one replayed SOT-2048 auto step (conv-f32)",
+                             lambda: graph([0]), F32_CONV, top=30)
+    names = set().union(*(v for k, v in DEVICE_NAMES.items()
+                          if k.startswith("one replayed SOT-2048 auto step (conv-f32)")))
+    left = sorted(n for n in names if n in wide_only)
+    print(f"[conv-f32] the auto train graph: counts a step {per_step}; f32 kernels by name in "
+          f"one replay {sorted(set(F32_CONV) & seen)}; cuDNN k = 15 kernels in it: {left}; "
+          f"its other convolution kernels: "
+          f"{sorted(n[:70] for n in names if conv_like.search(n) and 'conv_f32' not in n)}")
+    require(set(F32_CONV) <= seen, "conv-f32: the f32 kernels are not in a replay's trace")
+    require(not left, f"conv-f32: cuDNN's k = 15 kernels still run in the graph: {left}")
+    require(per_step == {"conv1d_f32_forward": 4, "conv1d_f32_weight": 2},
+            f"conv-f32: the train graph counts {per_step} a step, expected 4 + 2")
+    request = make_requests(cfg, dev, 1, seed=4001)[0]
+    predict(mod, request)
+    served = next(iter(mod.serve_graphs.values())).launches
+    served = {k: served[k] for k in F32_CONV}
+    print(f"[conv-f32] the served graph: counts a request {served}")
+    require(served == {"conv1d_f32_forward": 2, "conv1d_f32_weight": 0},
+            f"conv-f32: the served graph counts {served} a request, expected 2 forwards")
+    del graph, state, mod
+    print(f"[conv-f32] the phase took {time.perf_counter() - t_phase:.1f} s of host clock")
+    return [entries["forward"], entries["dW"]]
+
+
 # every kernel wrapper's launch count (ops/kernels/launches.py); a CUDA
 # graph's replays add its capture's counts once per replay
 reset_launches = launches_lib.reset
@@ -2620,9 +2799,10 @@ def train(cfg, dev, x_all, kernels=JAX_AUTO, on=(), window=True):
 
 def conv_gate_ab(cfg, dev, x_all):
     """Information only (no preset changes): the device busy ms of one
-    SOT-2048 train step under JAX_AUTO (cuDNN's f32 convs) and under
+    SOT-2048 train step under JAX_AUTO (the f32 conv kernels) and under
     CONV_F32 (the k > 1 convs on kernels 10 and 11 in 3xTF32), each model
-    warmed by two steps, profiled in turns (cuDNN, kernels, kernels, cuDNN)."""
+    warmed by two steps, profiled in turns (f32 route, kernels 10-11, kernels
+    10-11, f32 route)."""
     mods = {}
     for name, gates in (("jax-auto", JAX_AUTO), ("jax-auto + conv kernels f32", CONV_F32)):
         mod = build_modules(cfg, device=dev, generator=torch.Generator().manual_seed(cfg.seed),
@@ -2784,7 +2964,8 @@ GRAPH_STEPS = 4          # [train-graph]: replays held against as many eager ste
 GRAPH_WINDOW = 32        # [train-graph]: the steps of each host-clock window
 # the hand-written kernels of SOT-2048's JAX_AUTO route, by their __global__ names
 AUTO_KERNEL_NAMES = ("cqt_tile_kernel", "synth_fwd_kernel", "synth_bwd_kernel",
-                     "coupling_fwd_kernel", "refgrad_kernel")
+                     "coupling_fwd_kernel", "refgrad_kernel", "conv_f32_fwd_kernel",
+                     "conv_f32_dw_kernel")
 # each launch count's kernel by its __global__ name in csrc/
 KERNEL_GLOBALS = {"cqt_project": "cqt_tile_kernel", "synth_render": "synth_fwd_kernel",
                   "synth_backward": "synth_bwd_kernel", "merge_coupling": "coupling_fwd_kernel",
@@ -2792,7 +2973,9 @@ KERNEL_GLOBALS = {"cqt_project": "cqt_tile_kernel", "synth_render": "synth_fwd_k
                   "sot_plane_backward": "plane_bwd_kernel",
                   "coupling_grads": "coupling_grad_kernel",
                   "stft_frontend": "stft_frontend_fft_kernel",
-                  "conv1d_forward": "conv_fwd_mma_kernel", "conv1d_weight": "conv_dw_mma_kernel"}
+                  "conv1d_forward": "conv_fwd_mma_kernel", "conv1d_weight": "conv_dw_mma_kernel",
+                  "conv1d_f32_forward": "conv_f32_fwd_kernel",
+                  "conv1d_f32_weight": "conv_f32_dw_kernel"}
 GRAPH_READINGS: dict = {}  # [train-graph]'s readings, printed together at the end
 TRACE_TRIES = 2          # traces added when a route kernel's record is missing
 
@@ -3097,6 +3280,10 @@ def check_profile_cli(dev) -> None:
         text, _, _ = run_cli(["train", "--experiment", "SOT-2048", *JAX_AUTO_FLAGS,
                               "--profile", "--steps", "1", "--eval-every", "1", "--out", out]
                              + device_flags(dev))
+        counts = next(line for line in text.splitlines() if line.startswith("# kernel launches"))
+        print(f"[profile-cli] {counts}")
+        require("conv1d_f32_forward 4," in counts and "conv1d_f32_weight 2" in counts,
+                "cli train --profile: the f32 convs did not launch 4 + 2 a step")
         table = text[text.index("# device trace ->"):].splitlines()
         table = [line for line in table if line.startswith("#") or "ms/step" in line]
         for line in table:
@@ -3288,9 +3475,10 @@ def check_serve_graph(cfg, dev) -> None:
     from a reference checkpoint."""
     t_phase = time.perf_counter()
     base = ("cqt_project", "synth_render")
+    f32 = base + ("conv1d_f32_forward",)
     for label, kernels, override, on in (
-            ("jax-auto", JAX_AUTO, {}, base),
-            ("jax-auto + comb", JAX_AUTO, {"inference_comb_correction": True}, base),
+            ("jax-auto", JAX_AUTO, {}, f32),
+            ("jax-auto + comb", JAX_AUTO, {"inference_comb_correction": True}, f32),
             ("gated + octave", GATED, {"inference_octave_correction": True},
              base + ("stft_frontend", "conv1d_forward"))):
         serve_graph_route(cfg.replace(**override), dev, label, kernels, on)
@@ -4104,6 +4292,11 @@ PARALLEL_2_STEPS = 2     # [parallel]: steps of each 2-rank mesh on the one card
 PARALLEL_WINDOW = 32     # [parallel]: the steps of each host-clock window
 AUTO_KERNELS = ("cqt_project", "synth_render", "synth_backward", "merge_coupling",
                 "ref_grad_beta")
+# a SOT-2048 JAX_AUTO step's launches: kernels 1-5 once, the f32 conv forward
+# four times (conv1, prefilter and their input gradients) and its weight
+# gradient twice
+STEP_LAUNCHES = {**{k: 1 for k in AUTO_KERNELS}, "conv1d_f32_forward": 4,
+                 "conv1d_f32_weight": 2}
 
 
 def check_parallel(cfg, dev, x_all) -> None:
@@ -4111,12 +4304,13 @@ def check_parallel(cfg, dev, x_all) -> None:
     (SOT-2048 auto, global batch 64 of the train split): one rank over NCCL
     in this process, PARALLEL_STEPS sharded steps bit-equal to as many
     single-device train_steps under cudnn.deterministic, kernels 1-5 each
-    launched once a sharded step and no other; then two ranks on the one
+    launched once a sharded step, the f32 conv kernels 4 + 2 times, and no
+    other; then two ranks on the one
     card (spawned, Gloo over CUDA tensors): meshes (2, 1) and (1, 2), each
     step's loss within the dry run's limit of the single-device step, its
     reduced gradient and grad_norm within the dry run's limit of the ranks'
     mean computed in one process, the ranks' parameters and gradients
-    bit-equal, kernels 1-5 launched once a step on rank 0, and the four
+    bit-equal, STEP_LAUNCHES a step on rank 0, and the four
     sharded ops against their single-device ops (the row-sharded solve
     bit-equal). Host-clock windows of the one-rank step beside the
     single-device step (information only)."""
@@ -4133,7 +4327,7 @@ def check_parallel(cfg, dev, x_all) -> None:
             f"[parallel] one rank ran {one['backend']} on {mesh['mesh']}")
     require(len(mesh["steps"]) == PARALLEL_STEPS and all(s["bit_equal"] for s in mesh["steps"]),
             "[parallel] the one-rank step is not bit-equal to the single-device step")
-    want = {k: PARALLEL_STEPS if k in AUTO_KERNELS else 0 for k in mesh["launches"]}
+    want = {k: PARALLEL_STEPS * STEP_LAUNCHES.get(k, 0) for k in mesh["launches"]}
     require(mesh["launches"] == want,
             f"[parallel] launches of the {PARALLEL_STEPS} sharded steps {mesh['launches']}, "
             f"expected {want}")
@@ -4161,7 +4355,7 @@ def check_parallel(cfg, dev, x_all) -> None:
     seconds = time.perf_counter() - t0
     require([m["mesh"] for m in two["meshes"]] == [{"data": 2, "freq": 1}, {"data": 1, "freq": 2}],
             f"[parallel] two ranks ran the meshes {[m['mesh'] for m in two['meshes']]}")
-    want = {k: PARALLEL_2_STEPS if k in AUTO_KERNELS else 0 for k in two["meshes"][0]["launches"]}
+    want = {k: PARALLEL_2_STEPS * STEP_LAUNCHES.get(k, 0) for k in two["meshes"][0]["launches"]}
     for m in two["meshes"]:
         require(len(m["steps"]) == PARALLEL_2_STEPS
                 and all(s["ranks_bit_equal"] for s in m["steps"]),
@@ -4197,7 +4391,7 @@ def check_parallel(cfg, dev, x_all) -> None:
 # ---------------------------------------------------------------------------
 
 ADOPTION_ITERS = 8       # [adoption]: replays of each A/B graph (gate_ab's default)
-# kernels 10-11 in 3xTF32 against cuDNN's f32 convs through the whole encoder
+# kernels 10-11 in 3xTF32 against the f32 conv kernels through the whole encoder
 # at conv_ab's shape: its outputs and parameter gradients, max|d|/max (both
 # f32-accurate; the per-conv limit is CONV_LIMIT)
 CONV_PARITY_LIMIT = 1e-4
@@ -4212,13 +4406,13 @@ def route_kernels(gates: KernelGates, n_bins: int) -> tuple:
     bins launches under ``gates``."""
     return (("cqt_project", "synth_render", "synth_backward")
             + SOT_ROUTE_KERNELS[wasserstein_lib.w2_route(n_bins, gates)]
-            + (("conv1d_forward", "conv1d_weight") if gates.conv else ())
+            + (("conv1d_forward", "conv1d_weight") if gates.conv else f32_conv_on(gates))
             + (("stft_frontend",) if gates.stft_frontend else ()))
 
 
 def conv_parity(dev) -> tuple:
     """The encoder on conv_ab's input with kernels 10-11 (3xTF32) against
-    cuDNN's f32 convs: (outputs' max|d|/max, parameter gradients' max|d| over
+    the f32 conv kernels: (outputs' max|d|/max, parameter gradients' max|d| over
     the largest gradient), the same weights in both."""
     x = torch.randn(BATCH * 16, gate_ab.CONV_BINS,
                     generator=torch.Generator().manual_seed(1)).to(dev)
@@ -4284,10 +4478,11 @@ def check_adoption(cfg, dev, x_all) -> None:
                   f" limit {gate_ab.REFGRAD_PARITY_LIMIT})")
             require(now["parity"]["ok"], f"{name}: ref and hybrid gradients disagree")
     out_rel, grad_rel = conv_parity(dev)
-    print(f"[adoption] conv_ab's pair: the encoder with kernels 10-11 (3xTF32) against cuDNN "
-          f"f32: outputs max|d|/max {out_rel:.3e}, parameter gradients {grad_rel:.3e} (limit "
+    print(f"[adoption] conv_ab's pair: the encoder with kernels 10-11 (3xTF32) against the f32 "
+          f"route (csrc/conv_f32.cu): outputs max|d|/max {out_rel:.3e}, parameter gradients {grad_rel:.3e} (limit "
           f"{CONV_PARITY_LIMIT})")
-    require(max(out_rel, grad_rel) <= CONV_PARITY_LIMIT, "kernels 10-11 disagree with cuDNN")
+    require(max(out_rel, grad_rel) <= CONV_PARITY_LIMIT,
+            "kernels 10-11 disagree with the f32 route")
     stft_rel = frontend_parity(dev)
     print(f"[adoption] mss_ab's pair: kernel 9 against cuFFT, max|d|/max by n_fft {stft_rel} "
           f"(limit {FRONTEND_LIMIT})")
@@ -4303,7 +4498,7 @@ def check_adoption(cfg, dev, x_all) -> None:
               f"{launches}; route kernels {list(on)}")
         check_train_graph(dev, x_all, (("SOT-2048 auto", cfg, auto, on),))
         serve_graph_route(cfg, dev, "auto", auto, ("cqt_project", "synth_render")
-                          + (("conv1d_forward",) if auto.conv else ()))
+                          + (("conv1d_forward",) if auto.conv else f32_conv_on(auto)[:1]))
     print(f"[adoption] the phase took {time.perf_counter() - t_phase:.1f} s of host clock")
 
 
@@ -4313,6 +4508,8 @@ def main() -> int:
                         help="other plane.cu, merge.cu or refgrad.cu sources (e.g. an earlier "
                              "commit's, chosen by file name) to time kernels 6 and 7, 4 and 8 or 5 "
                              "against, in turns")
+    parser.add_argument("--phase", choices=("all", "conv-f32"), default="all",
+                        help="conv-f32: the device and build phases and [conv-f32] alone")
     args = parser.parse_args()
     for path in args.ab_parent:
         if os.path.basename(path) not in AB_SOURCES or not os.path.isfile(path):
@@ -4326,7 +4523,8 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     set_precision_policy()
 
-    seconds = _build.build(["cqt", "synth", "merge", "refgrad", "plane", "stft", "conv"])
+    seconds = _build.build(["cqt", "synth", "merge", "refgrad", "plane", "stft", "conv",
+                            "conv_f32"])
     print(f"[build] nvcc sm_90a, parallel: {json.dumps(seconds)} s")
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
@@ -4335,15 +4533,19 @@ def main() -> int:
 
     cfg = get_experiment("SOT-2048")
     cfg512 = get_experiment("SOT-512")
+    if args.phase == "conv-f32":
+        print(json.dumps({"kernels": check_conv_f32(cfg, dev, train_dataset(cfg, dev))}))
+        print(card)
+        return 0
     rng = np.random.default_rng(0)
     kernels = [check_cqt(cfg, dev, rng), check_synth(cfg, dev, rng)]
     mod = check_golden(cfg, dev)
     serving_launches, last_request = serve(cfg, mod)
-    _, seen = replay_kernels("one served request", lambda: predict(mod, last_request),
-                             ("cqt_project", "synth_render"))
-    require(seen == {"cqt_project", "synth_render"},
+    served_on = ("cqt_project", "synth_render", "conv1d_f32_forward")
+    _, seen = replay_kernels("one served request", lambda: predict(mod, last_request), served_on)
+    require(seen == set(served_on),
             f"the trace of one served request holds the hand-written kernels {sorted(seen)}, "
-            f"not kernels 1 and 2 alone")
+            f"not kernels 1 and 2 and the f32 conv forward alone")
     check_serve_graph(cfg, dev)
 
     # the train step's kernels on real SOT rows of the trained models
@@ -4382,20 +4584,22 @@ def main() -> int:
                        "train-golden-gated", GATED)
 
     x_all = train_dataset(cfg, dev)
+    kernels += check_conv_f32(cfg, dev, x_all)
     common = ("cqt_project", "synth_render", "synth_backward")
     gated = ("coupling_grads", "stft_frontend", "conv1d_forward", "conv1d_weight")
+    f32 = common + F32_CONV  # the routes whose encoder runs the f32 conv kernels
     runs = {
         "SOT-2048 jax-auto": train(cfg, dev, x_all,
-                                   on=common + ("merge_coupling", "ref_grad_beta")),
+                                   on=f32 + ("merge_coupling", "ref_grad_beta")),
         "SOT-512 jax-auto": train(cfg512, dev, x_all,
-                                  on=common + ("merge_coupling", "sot_plane_backward")),
+                                  on=f32 + ("merge_coupling", "sot_plane_backward")),
         "SOT-512-LogF jax-auto": train(get_experiment("SOT-512-LogF"), dev, x_all,
                                        window=False,
-                                       on=common + ("merge_coupling", "sot_plane_backward")),
+                                       on=f32 + ("merge_coupling", "sot_plane_backward")),
         "SOT-2048 default": train(cfg, dev, x_all, kernels="default",
-                                  on=common + ("sot_plane_forward", "sot_plane_backward")),
+                                  on=f32 + ("sot_plane_forward", "sot_plane_backward")),
         "SOT-512 default": train(cfg512, dev, x_all, kernels="default", window=False,
-                                 on=common + ("sot_plane_forward", "sot_plane_backward")),
+                                 on=f32 + ("sot_plane_forward", "sot_plane_backward")),
         "SOT-2048 gated": train(cfg, dev, x_all, kernels=GATED,
                                 on=common + ("merge_coupling",) + gated),
         "SOT-512 gated": train(cfg512, dev, x_all, kernels=GATED, window=False,
@@ -4410,13 +4614,13 @@ def main() -> int:
             f"expected {4 * TRAIN_STEPS} / {2 * TRAIN_STEPS}")
     conv_gate_ab(cfg, dev, x_all)
     check_train_graph(dev, x_all, (
-        ("SOT-2048 jax-auto", cfg, JAX_AUTO, common + ("merge_coupling", "ref_grad_beta")),
+        ("SOT-2048 jax-auto", cfg, JAX_AUTO, f32 + ("merge_coupling", "ref_grad_beta")),
         ("SOT-2048 default", cfg, "default",
-         common + ("sot_plane_forward", "sot_plane_backward")),
+         f32 + ("sot_plane_forward", "sot_plane_backward")),
         ("SOT-2048 gated", cfg.replace(eval_comb_correction=True), GATED,
          common + ("merge_coupling",) + gated),
         ("SOT-512 jax-auto", cfg512, JAX_AUTO,
-         common + ("merge_coupling", "sot_plane_backward"))))
+         f32 + ("merge_coupling", "sot_plane_backward"))))
     check_train_run(dev, x_all=x_all)
     check_profile_cli(dev)
     check_paper_table(dev)

@@ -16,7 +16,9 @@ Every command but ``list`` runs on the GPU unless ``--device cpu`` asks for
 the CPU; without a GPU and without ``--device`` it raises. A run directory
 holds ``train_config.json`` (the resolved config), ``kernel_gates.json``
 (the gates the run trained and evaluated with: ``--kernels`` and the
-``--gate FIELD=VALUE`` pins, the port's ``SOT_TPU_*``), ``log.jsonl``,
+``--gate FIELD=VALUE`` pins, the port's ``SOT_TPU_*``; after training,
+``train_launches``, each hand-written kernel's launches over the steps and
+the val evaluations, which names the conv kernels that ran), ``log.jsonl``,
 ``checkpoints/{best-lsd,last}`` and ``best_metrics.json``; ``--ckpt`` takes
 a run checkpoint, whose run's ``train_config.json`` is used, a
 ``torch.save`` of the encoder's ``state_dict`` (for weights trained by the
@@ -187,6 +189,7 @@ def _profile_steps(cfg, trace_dir: str, device, kernels, n_steps: int = 5) -> No
     import torch
 
     from sot_tpu_torch import data as data_lib
+    from sot_tpu_torch.ops.kernels import launches as launches_lib
     from sot_tpu_torch.training import trainer
     from sot_tpu_torch.training.profiling import print_trace_summary, trace
 
@@ -202,8 +205,12 @@ def _profile_steps(cfg, trace_dir: str, device, kernels, n_steps: int = 5) -> No
     steps(mod, state, x, [0] * 3)
     if mod.device.type == "cuda":
         torch.cuda.synchronize()
+    before = launches_lib.read()
     with trace(trace_dir):
         steps(mod, state, x, [0] * n_steps)
+    counts = launches_lib.delta(before, launches_lib.read())
+    print("# kernel launches a step: "
+          + ", ".join(f"{k} {v / n_steps:g}" for k, v in counts.items() if v))
     print(f"# device trace -> {trace_dir} (top ops, ms/step):")
     print_trace_summary(trace_dir, steps=n_steps, top=15)
 
@@ -212,6 +219,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     from sot_tpu_torch import data as data_lib
     from sot_tpu_torch.device import card_line
     from sot_tpu_torch.kernel_gates import gates_record
+    from sot_tpu_torch.ops.kernels import launches as launches_lib
     from sot_tpu_torch.training.trainer import build_modules, evaluate, make_eval_step, train
 
     overrides = {}
@@ -240,20 +248,30 @@ def cmd_train(args: argparse.Namespace) -> int:
     out = args.out or f"runs/{cfg.name}-{cfg.seed}"
     os.makedirs(out, exist_ok=True)
     _save_resolved_config(cfg, out)
-    with open(os.path.join(out, "kernel_gates.json"), "w") as fh:
-        json.dump({"kernels": args.kernels, "pins": list(args.gate or ()),
-                   "gates": gates_record(gates), "command": args.command_line,
-                   "device": card_line(device)}, fh, indent=2)
+    record = {"kernels": args.kernels, "pins": list(args.gate or ()),
+              "gates": gates_record(gates), "command": args.command_line,
+              "device": card_line(device)}
+
+    def write_record():
+        with open(os.path.join(out, "kernel_gates.json"), "w") as fh:
+            json.dump(record, fh, indent=2)
+
+    write_record()
 
     if args.profile:
         _profile_steps(cfg, os.path.join(out, "trace"), device, gates)
 
     splits = data_lib.dataset_from_config(cfg, device=device)
+    before = launches_lib.read()
     mod, _, best = train(cfg, max_steps=args.steps,
                          checkpoint_dir=os.path.join(out, "checkpoints"),
                          log_file=os.path.join(out, "log.jsonl"), splits=splits,
                          resume_from=args.resume, figure_dir=out if args.figures else None,
                          device=device, kernels=gates)
+    # the hand-written kernels that trained and evaluated the run, by launches
+    record["train_launches"] = {k: v for k, v in
+                                launches_lib.delta(before, launches_lib.read()).items() if v}
+    write_record()
     with open(os.path.join(out, "best_metrics.json"), "w") as fh:
         json.dump(best, fh, indent=2)
     print(json.dumps({"best_val_metrics": best}))

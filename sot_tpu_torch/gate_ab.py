@@ -17,9 +17,12 @@ script has one, ``complete``):
     against ``ref`` (B4 + B5), with the gradient parity of the two on one
     slice (max|d| / max|hybrid| < 1e-4, the JAX script's limit);
   * ``conv_ab.json`` — the PESTO encoder's forward and its gradient to the
-    input and every parameter on [1024, 285] frames: ``xla`` (cuDNN f32,
-    TF32 off) against ``pallas`` (kernels B10/B11, ``conv_dtype=float32``,
-    3xTF32), ``pallas_bf16`` beside it for information;
+    input and every parameter on [1024, 285] frames: ``xla`` (the default
+    encoder: on the card the f32 conv kernels of ``csrc/conv_f32.cu`` for
+    the k = 15 convs, cuDNN f32 with TF32 off for the 1x1 convs; the
+    committed file was measured when cuDNN ran them all) against ``pallas``
+    (kernels B10/B11, ``conv_dtype=float32``, 3xTF32), ``pallas_bf16``
+    beside it for information;
   * ``mss_ab.json`` — the six-scale MSS loss on 64 x 4096 clips and its
     gradient to the estimate: ``fft`` (cuFFT) against ``dft_matmul``,
     ``pallas`` (kernel B9) and ``pallas+dft``.
@@ -149,8 +152,9 @@ def refgrad_parity(grid: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> Dict
 
 def encoder(device: torch.device, conv_dtype):
     """The PESTO encoder on [rows, 285] frames in eval mode, weights from
-    seed 0 whatever ``conv_dtype`` (None: PyTorch's convolutions; else
-    kernels B10/B11 with that operand type)."""
+    seed 0 whatever ``conv_dtype`` (None: the default encoder, whose k = 15
+    convs take the f32 kernels on the GPU; else kernels B10/B11 with that
+    operand type)."""
     from sot_tpu_torch.models.encoder import PESTOEncoder
 
     return PESTOEncoder(n_bins_in=CONV_BINS, output_size=CONV_BINS,

@@ -10,7 +10,10 @@
   * 'frequency' logits (Toeplitz), 'weights' (n_modes harmonic amplitudes via
     exp-sigmoid, dense), optional 'gain'
 
-Convolutions run in PyTorch's NCW layout. With ``conv_dtype`` (the
+Convolutions run in PyTorch's NCW layout. By default the k > 1 'same'
+convolutions are ``F32Conv1d``: on the GPU the hand-written f32 kernels of
+``ops/kernels/conv.conv1d_f32`` (a layer their shape rule does not take
+raises there), on the CPU ``nn.Conv1d``'s own forward. With ``conv_dtype`` (the
 ``conv`` kernel gate, ``SOT_TPU_CONV_PALLAS`` in the JAX package) the
 k > 1 'same' convolutions (``conv1``, ``prefilt*``) run on the hand-written
 kernels B10/B11 with operands rounded to that type (``KernelConv1d``,
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sot_tpu_torch.device import device_constant
+from sot_tpu_torch.ops.kernels import conv as kconv
 from sot_tpu_torch.ops.kernels.conv import conv1d_same
 from sot_tpu_torch.ops.numerics import exp_sigmoid
 
@@ -101,6 +105,29 @@ class KernelConv1d(nn.Conv1d):
         return conv1d_same(x, self.weight, self.compute_dtype) + self.bias[:, None]
 
 
+class F32Conv1d(nn.Conv1d):
+    """An ``nn.Conv1d`` with 'same' padding whose forward on a CUDA tensor
+    is ``kconv.conv1d_f32`` (the kernels of ``csrc/conv_f32.cu``, forward,
+    input and weight gradients; the bias added after the sum in f32), and on
+    the CPU ``nn.Conv1d``'s own. On CUDA a layer the kernels' shape rule
+    (``kconv.f32_route``) does not take, or an input the wrapper does not
+    take, raises. Parameters, initialisation and state-dict keys are the
+    base class's."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+        super().__init__(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return super().forward(x)
+        if not kconv.f32_route(self.kernel_size[0], self.in_channels, self.out_channels,
+                               self.stride[0], self.padding[0], self.dilation[0], self.groups,
+                               self.padding_mode):
+            raise ValueError(f"F32Conv1d: the f32 kernels do not take k {self.kernel_size[0]}, "
+                             f"C_in {self.in_channels}, C_out {self.out_channels}")
+        return kconv.conv1d_f32(x, self.weight, self.bias)
+
+
 class Bf16Conv1d(nn.Conv1d):
     """An ``nn.Conv1d`` computed as Flax's ``nn.Conv(dtype=bfloat16)``: the
     input, weight and bias cast to bf16, the conv in bf16 with a bf16
@@ -141,7 +168,8 @@ class PESTOEncoder(nn.Module):
     frames). ``conv_dtype``: None for PyTorch's convolutions, else the
     operand type of the hand-written kernels for the k > 1 convs.
     ``conv_bf16``: the conv stack's activations in bf16 (``Bf16Conv1d`` for
-    every conv the kernels do not take).
+    every conv the kernels do not take). With neither, the k > 1 convs are
+    ``F32Conv1d``.
     """
 
     def __init__(
@@ -176,7 +204,10 @@ class PESTOEncoder(nn.Module):
 
         self.layernorm = nn.LayerNorm([1, n_bins_in], eps=1e-5)
         conv = Bf16Conv1d if conv_bf16 else nn.Conv1d
-        if conv_dtype is None or kernel_size <= 1:
+        if conv_dtype is None and not conv_bf16 and kernel_size > 1:
+            def wide(cin, cout):
+                return F32Conv1d(cin, cout, kernel_size)
+        elif conv_dtype is None or kernel_size <= 1:
             def wide(cin, cout):
                 return conv(cin, cout, kernel_size, padding=pad)
         else:

@@ -26,6 +26,8 @@ COUNTERS = {
     "stft_frontend": (stft, "launches"),
     "conv1d_forward": (conv, "launches"),
     "conv1d_weight": (conv, "dw_launches"),
+    "conv1d_f32_forward": (conv, "f32_launches"),
+    "conv1d_f32_weight": (conv, "f32_dw_launches"),
 }
 
 

@@ -281,6 +281,16 @@ def test_cli_gate_reaches_train_and_final_eval(pinned_run):
     assert rec["device"] == "cpu"
 
 
+def test_run_record_names_the_kernels_by_launches(pinned_run):
+    """After training the record holds each hand-written kernel's launches
+    over the run (none on the CPU, whose plain versions launch nothing)."""
+    out, _ = pinned_run
+    with open(os.path.join(out, "kernel_gates.json")) as fh:
+        rec = json.load(fh)
+    assert rec["train_launches"] == {}
+    assert set(rec) == {"kernels", "pins", "gates", "command", "device", "train_launches"}
+
+
 def test_cli_auto_with_pins_is_auto_gates():
     gates, pins = cli._train_gates("auto", ["conv=true", "w2_merge=off"])
     assert pins == {"conv": True, "w2_merge": "off"}

@@ -44,7 +44,7 @@ from sot_tpu.training import trainer as jtrainer  # noqa: E402
 from sot_tpu_torch.configs import get_experiment  # noqa: E402
 from sot_tpu_torch.convert import flat_from_tree, params_to_flax  # noqa: E402
 from sot_tpu_torch.kernel_gates import PRESETS, KernelGates, auto_gates, resolve_gates  # noqa: E402
-from sot_tpu_torch.models.encoder import KernelConv1d  # noqa: E402
+from sot_tpu_torch.models.encoder import F32Conv1d, KernelConv1d  # noqa: E402
 from sot_tpu_torch.ops import wasserstein as tw  # noqa: E402
 from sot_tpu_torch.ops.kernels import conv as kconv  # noqa: E402
 from sot_tpu_torch.ops.kernels import merge as kmerge  # noqa: E402
@@ -80,7 +80,9 @@ def test_kernel_gates_presets_and_routes():
 
 
 def test_build_modules_threads_the_gates():
-    """Every gate reaches its module, and the default build is unchanged."""
+    """Every gate reaches its module, and the default build keeps the
+    encoder's parameters: its k = 15 convs are the f32 route's
+    ``F32Conv1d`` (an ``nn.Conv1d``)."""
     cfg = get_experiment("SOT-2048")
     mod = ttrainer.build_modules(cfg, device="cpu", kernels=GATED)
     assert mod.kernels is GATED
@@ -91,8 +93,8 @@ def test_build_modules_threads_the_gates():
     plain = ttrainer.build_modules(cfg, device="cpu")
     assert plain.kernels == PRESETS["auto"]
     assert isinstance(plain.encoder.conv1, KernelConv1d) is PRESETS["auto"].conv
-    assert type(ttrainer.build_modules(cfg, device="cpu", kernels="default").encoder.conv1) \
-        is torch.nn.Conv1d
+    conv1 = ttrainer.build_modules(cfg, device="cpu", kernels="default").encoder.conv1
+    assert type(conv1) is F32Conv1d and isinstance(conv1, torch.nn.Conv1d)
     assert plain.encoder.state_dict().keys() == mod.encoder.state_dict().keys()
 
 

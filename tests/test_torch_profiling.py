@@ -68,8 +68,9 @@ def test_handwritten_kernels_are_read_from_the_sources():
     names = profiling.handwritten_kernels()
     sources = glob.glob(os.path.join(os.path.dirname(os.path.dirname(profiling.__file__)),
                                      "csrc", "*.cu"))
-    assert len(sources) == 7 and len(names) >= 11
-    assert {"cqt_tile_kernel", "conv_dw_reduce_kernel"} <= set(names)
+    assert len(sources) == 8 and len(names) >= 14
+    assert {"cqt_tile_kernel", "conv_dw_reduce_kernel", "conv_f32_fwd_kernel",
+            "conv_f32_dw_kernel", "conv_f32_dw_reduce_kernel"} <= set(names)
     assert profiling.kernel_origin("void cqt_tile_kernel<(int)4>(float const*)") == \
         "csrc (hand-written)"
     assert profiling.kernel_origin("void cudnn::winograd_nonfused::x(float)") == \
