@@ -1,4 +1,4 @@
-"""The benchmark's inputs, made from ``--seed``: the encoder's weights and
+"""The benchmark's inputs, made from ``--seed``: the model's weights and
 the clips, both on the device and in a few large calls.
 
 Clips follow the paper's synthetic distribution (arXiv 2312.14507, Sec. 4;
@@ -12,12 +12,11 @@ sinusoids in float64 and stored in float32, each clip peak-normalised to
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict
 
 import numpy as np
 import torch
-
-from portbench.reference import model as ref_model
 
 
 def sub_seed(seed: int, tag: str) -> int:
@@ -30,11 +29,14 @@ def generator(seed: int, tag: str, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(sub_seed(seed, tag))
 
 
-def weights(cfg: dict, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Every encoder parameter from one U[0, 1) draw on the device."""
-    u = torch.rand(ref_model.n_params(cfg), generator=generator(seed, "weights", device),
+def weights(reference: ModuleType, cfg: dict, seed: int,
+            device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every parameter of the model whose plain reference is ``reference``
+    (its ``n_params`` and ``weights_from_uniform``) from one U[0, 1) draw
+    on the device."""
+    u = torch.rand(reference.n_params(cfg), generator=generator(seed, "weights", device),
                    device=device)
-    return {k: v.contiguous() for k, v in ref_model.weights_from_uniform(cfg, u).items()}
+    return {k: v.contiguous() for k, v in reference.weights_from_uniform(cfg, u).items()}
 
 
 def clips(cfg: dict, n: int, seed: int, tag: str, device: torch.device) -> torch.Tensor:

@@ -13,8 +13,17 @@ and then the rest of the first epoch; the window runs whole epochs.
 ``closed_loop``: one client sends back-to-back requests of
 ``request_clips`` host clips each (float32 numpy, peak-normalised), taken in
 turn from a pool of ``pool_requests`` distinct batches made at set-up from
-the seed, through the program's ``predict``; a request ends when pitch_hz,
-pitch_unit and weights are in host memory.
+the seed, through the program's ``predict``; a request ends when the
+outputs that the model's comparison names (``OUTPUTS["host"]``) are in
+host memory.
+
+What belongs to the cell's model is found through ``cell.model``: the
+weights' draw (its reference), a clip's frames (its counts), and a
+request's outputs and the readings of the check (its comparison).
+
+Each kind names the end-to-end quantities it measures (``REPORTS``); a
+cell's end-to-end metrics are found among them by name
+(``spec.quantity``).
 """
 
 from __future__ import annotations
@@ -25,17 +34,18 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench import check, inputs, trace
+from portbench import inputs, trace
 
 class Load:
     """Set-up, the window, the traced window and the comparison of a cell."""
 
     kind = ""
+    REPORTS: tuple = ()
     clips_per_unit = 1
 
     def __init__(self, cell, seed: int, device: torch.device, program_cls):
         self.cell, self.seed, self.device = cell, seed, torch.device(device)
-        self.cfg, self.traffic = cell.config, cell.traffic
+        self.cfg, self.traffic, self.model = cell.config, cell.traffic, cell.model
         self.program_cls = program_cls
         self.program = None
         self.units = 0
@@ -73,6 +83,7 @@ class Load:
 
 class TrainEpoch(Load):
     kind = "train"
+    REPORTS = ("train_frames_per_s",)
 
     def setup(self) -> None:
         cfg, dev = self.cfg, self.device
@@ -82,7 +93,7 @@ class TrainEpoch(Load):
         self.x_all = inputs.clips(cfg, n_train, self.seed, "train", dev)
         self.steps_per_epoch = n_train // self.batch
         self.order = np.random.default_rng(inputs.sub_seed(self.seed, "order"))
-        self.weights0 = inputs.weights(cfg, self.seed, dev)
+        self.weights0 = inputs.weights(self.model.reference, cfg, self.seed, dev)
         self.dropout_seed = inputs.sub_seed(self.seed, "dropout")
         self.mark("inputs")
         self.program = self.program_cls(cfg, self.weights0, dev)
@@ -135,7 +146,7 @@ class TrainEpoch(Load):
         return {"train_frames_per_s": frames / seconds}
 
     def frames_per_clip(self) -> int:
-        return (self.cfg["n_samples"] - 1) // self.cfg["cqt_hop_length"] + 1
+        return self.model.counts.frames_per_clip(self.cfg)
 
     def check_batches(self) -> List[torch.Tensor]:
         return [self.x_all[o:o + self.batch] for o in self.check_offsets]
@@ -143,12 +154,14 @@ class TrainEpoch(Load):
     def check(self) -> Dict[str, float]:
         # Adam's first moment after one update is (1 - beta1) times the gradient
         prog_grad = {k: v / 0.1 for k, v in self.first_moments.items()}
-        return check.train_readings(self.cfg, self.device, self.weights0, self.check_batches(),
-                                    self.dropout_seed, self.losses, prog_grad, self.params_after)
+        return self.model.compare.train_readings(self.cfg, self.device, self.weights0,
+                                                 self.check_batches(), self.dropout_seed,
+                                                 self.losses, prog_grad, self.params_after)
 
 
 class ClosedLoop(Load):
     kind = "serve"
+    REPORTS = ("serve_clips_per_s", "serve_p95_ms")
 
     def setup(self) -> None:
         cfg, dev = self.cfg, self.device
@@ -158,7 +171,9 @@ class ClosedLoop(Load):
         self.pool = [np.ascontiguousarray(b) for b in
                      x.cpu().numpy().reshape(-1, self.clips_per_unit, cfg["n_samples"])]
         del x
-        self.weights0 = inputs.weights(cfg, self.seed, dev)
+        self.weights0 = inputs.weights(self.model.reference, cfg, self.seed, dev)
+        self.host_outputs = self.model.compare.OUTPUTS["host"]
+        self.device_outputs = self.model.compare.OUTPUTS["device"]
         self.mark("inputs")
         self.program = self.program_cls(cfg, self.weights0, dev)
         self.mark("model")
@@ -176,12 +191,12 @@ class ClosedLoop(Load):
     def request(self, i: int) -> None:
         t0 = time.perf_counter()
         out = self.program.predict(self.pool[i])
-        host = {k: out[k].cpu().numpy() for k in ("pitch_hz", "pitch_unit", "weights")}
+        host = {k: out[k].cpu().numpy() for k in self.host_outputs}
         self.latencies.append(time.perf_counter() - t0)
         self.units += 1
         if not all(np.isfinite(v).all() for v in host.values()):
             self.failed += 1
-        self.latest[i] = {**host, "x_hat": out["x_hat"]}
+        self.latest[i] = {**host, **{k: out[k] for k in self.device_outputs}}
 
     def window(self, seconds: float, spans: bool = False) -> float:
         self.sync()
@@ -209,9 +224,9 @@ class ClosedLoop(Load):
 
     def check(self) -> Dict[str, float]:
         picks = self.sample()
-        return check.serve_readings(self.cfg, self.device, self.weights0,
-                                    [self.pool[i] for i in picks],
-                                    [self.latest[i] for i in picks])
+        return self.model.compare.serve_readings(self.cfg, self.device, self.weights0,
+                                                 [self.pool[i] for i in picks],
+                                                 [self.latest[i] for i in picks])
 
 
 KINDS = {"train_epoch": TrainEpoch, "closed_loop": ClosedLoop}

@@ -23,10 +23,10 @@ def is_conv(name: str) -> bool:
 
 
 def least_step_seconds(cfg: dict) -> float:
-    rows = cfg["batch_size"] * counts.frames_per_clip(cfg)
-    length = counts.n_bins(cfg)
+    rows = cfg["batch_size"] * counts.of(cfg).frames_per_clip(cfg)
+    length = counts.of(cfg).n_bins(cfg)
     total = 0.0
-    for i, (_, ci, co, k) in enumerate(counts.convs(cfg)):
+    for i, (_, ci, co, k) in enumerate(counts.of(cfg).convs(cfg)):
         flops = counts.conv_flops(ci, co, k, length, rows)
         for pass_ in ("fwd", "dw") + (("dx",) if i else ()):
             total += counts.least_seconds(flops, counts.conv_bytes(ci, co, k, length, rows, pass_))

@@ -9,5 +9,5 @@ from portbench import counts
 def read(trace):
     if trace.kind != "serve" or trace.units == 0:
         return None
-    flops = counts.forward_flops(trace.config, trace.clips_per_unit) * trace.units
+    flops = counts.of(trace.config).forward_flops(trace.config, trace.clips_per_unit) * trace.units
     return 100.0 * flops / trace.window_s / counts.PEAK_FLOPS

@@ -11,5 +11,5 @@ from portbench import counts
 def read(trace):
     if trace.kind != "train" or trace.units == 0:
         return None
-    flops = counts.train_step_flops(trace.config, trace.clips_per_unit) * trace.units
+    flops = counts.of(trace.config).train_step_flops(trace.config, trace.clips_per_unit) * trace.units
     return 100.0 * flops / trace.window_s / counts.PEAK_FLOPS

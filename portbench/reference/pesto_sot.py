@@ -1,6 +1,8 @@
-"""The plain reference of the benchmark's configurations: the PESTO encoder,
-the soft-argmax pitch head, the frozen harmonic synth, the MSS and SOT
-(W2) losses and Adam with coupled L2, in float32 PyTorch on one device.
+"""The plain reference of PESTO-SOT, the model of the configuration files
+that name ``"model": "pesto_sot"``: the PESTO encoder, the soft-argmax
+pitch head, the frozen harmonic synth, the MSS and SOT (W2) losses and
+Adam with coupled L2, in float32 PyTorch on one device; the parameter spec
+and the weights drawn from one U[0, 1) vector.
 
 It reads a configuration file (``portbench/configs/<name>.json``), takes
 the weights and clips the benchmark made from the seed, and imports

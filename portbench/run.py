@@ -6,7 +6,8 @@ Set-up (counted in ``setup_s``, from the start of this process to the
 first timed step or request): the program's CUDA sources built into its
 fixed build directory inside the checkout (only a checkout's first run
 compiles), the clips and the weights made on the card from ``--seed``, the
-program's model built, the cell's graph captured and warmed up. Then the
+program's model built by the adapter of the model that the cell's
+configuration names, the cell's graph captured and warmed up. Then the
 window: ``--seconds`` of the cell's work on the host clock (``--trace 0``,
 the end-to-end metrics), or up to the traffic file's ``trace_seconds`` of
 it under the profiler (``--trace 1``, the per-layer metrics). Then the
@@ -62,11 +63,15 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, program_cls,
     on the device and the loaded modules, which ``main`` makes)."""
     import torch
 
-    from portbench import check, load
+    from portbench import check, load, spec
     from portbench import trace as trace_lib
 
     dev = torch.device(device)
     cls = load.KINDS[cell.traffic["kind"]]
+    # each end-to-end metric and the quantity it reports (a name that
+    # reports nothing this kind of traffic measures stops the cell here)
+    quantities = {m["name"]: spec.quantity(m["name"], cls.REPORTS + ("setup_s",))
+                  for m in cell.end_to_end}
     work = cls(cell, seed, dev, program_cls)
     work.setup()
     setup_s = time.perf_counter() - start
@@ -85,7 +90,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, program_cls,
         window_s = work.window(seconds)
         values = dict(work.metrics(window_s), setup_s=setup_s)
         units = {m["name"]: m["unit"] for m in cell.end_to_end}
-        result["metrics"] = {k: {"value": values[k], "unit": units[k]} for k in units}
+        result["metrics"] = {k: {"value": values[quantities[k]], "unit": units[k]}
+                             for k in units}
         device_times = {}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     result["attempted"], result["failed"] = work.units, work.failed
@@ -117,6 +123,7 @@ def main(argv=None) -> int:
         return 2
     from portbench import program
 
+    program_cls = program.adapter(cell)
     program.set_policy()
     t0 = time.perf_counter()
     torch.zeros(1, device="cuda")
@@ -124,8 +131,8 @@ def main(argv=None) -> int:
     program.build_kernels()
     print(f"portbench: imports {t0 - PROCESS_START:.3f}s, CUDA context {t1 - t0:.3f}s, "
           f"kernel build {time.perf_counter() - t1:.3f}s", file=sys.stderr)
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
-                      program.Program, PROCESS_START)
+    result = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", program_cls,
+                      PROCESS_START)
     found = forbidden_modules()
     if found:
         print(f"portbench: loaded after the window: {found}", file=sys.stderr)

@@ -7,16 +7,17 @@ import copy
 import pytest
 import torch
 
-from portbench import program, spec
+from portbench import spec
+from portbench.adapters import pesto_sot as adapter
 
 
-class SmallProgram(program.Program):
+class SmallProgram(adapter.Program):
     """The program at a configuration file's sizes but the cell's batch
     (the registry holds the published batch of 64)."""
 
     @staticmethod
     def run_config(cfg):
-        return program.experiment_config(dict(cfg, batch_size=64)).replace(
+        return adapter.experiment_config(dict(cfg, batch_size=64)).replace(
             batch_size=cfg["batch_size"])
 
 

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from portbench import counts, spec
+from portbench.counts import pesto_sot
 from portbench import trace as trace_lib
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -19,7 +20,7 @@ LIN = json.loads((ROOT / "portbench/configs/msslin.json").read_text())
 
 
 def test_shapes():
-    assert counts.n_bins(SOT) == 285 and counts.frames_per_clip(SOT) == 16
+    assert pesto_sot.n_bins(SOT) == 285 and pesto_sot.frames_per_clip(SOT) == 16
 
 
 def test_the_40_to_40_conv():
@@ -38,11 +39,11 @@ def test_encoder_and_step_counts():
     rows = 1024
     convs = (2 * rows * 285 * (1 * 40 * 15 + 40 * 40 * 15 + 40 * 30 + 30 * 30 + 30 * 10 + 10 * 3))
     heads = 2 * rows * 855 * (285 + 20)
-    cqt = counts.cqt_flops(SOT, 64)
-    assert counts.forward_flops(SOT, 64) == cqt + convs + heads
+    cqt = pesto_sot.cqt_flops(SOT, 64)
+    assert pesto_sot.forward_flops(SOT, 64) == cqt + convs + heads
     first = 2 * rows * 285 * 1 * 40 * 15
-    assert counts.train_step_flops(SOT, 64) == cqt + 3 * (convs + heads) - first
-    assert counts.train_step_flops(LIN, 64) == counts.train_step_flops(SOT, 64)
+    assert pesto_sot.train_step_flops(SOT, 64) == cqt + 3 * (convs + heads) - first
+    assert pesto_sot.train_step_flops(LIN, 64) == pesto_sot.train_step_flops(SOT, 64)
 
 
 def test_cqt_support():
@@ -52,7 +53,7 @@ def test_cqt_support():
     q = 1.0 / (2.0 ** (1.0 / 36) - 1.0)
     taps = sum(math.ceil(q * 16000 / (32.7 * 2.0 ** (k / 36))) for k in range(285))
     assert math.ceil(q * 16000 / 32.7) == 25169
-    assert counts.cqt_flops(SOT, 1) == 2 * 2 * taps * 16
+    assert pesto_sot.cqt_flops(SOT, 1) == 2 * 2 * taps * 16
 
 
 def test_w2_bytes_match_the_bound():
@@ -104,8 +105,8 @@ def test_trace_union_and_gaps():
     ("idle_share.serve", "serve", 60.0),
     ("request_busy_ms.serve", "serve", 40.0 / 1e3 / 2),
     ("request_overhead_ms.serve", "serve", ((50 - 30) + (50 - 10)) / 2 / 1e3),
-    ("mfu.train", "train", 100.0 * counts.train_step_flops(SOT, 64) * 2 / 1e-4 / 495e12),
-    ("mfu.serve", "serve", 100.0 * counts.forward_flops(SOT, 64) * 2 / 1e-4 / 495e12),
+    ("mfu.train", "train", 100.0 * pesto_sot.train_step_flops(SOT, 64) * 2 / 1e-4 / 495e12),
+    ("mfu.serve", "serve", 100.0 * pesto_sot.forward_flops(SOT, 64) * 2 / 1e-4 / 495e12),
 ])
 def test_readers(name, kind, expected):
     assert spec.load_reader(name)(_trace(kind)) == pytest.approx(expected)

@@ -23,9 +23,9 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from portbench import check
+from portbench.compare import pesto_sot as compare
 from portbench.reference import dsp
-from portbench.reference import model as ref_model
+from portbench.reference import pesto_sot as ref_model
 
 FAULTS = ("w2_value", "w2_grad", "conv_dx", "conv_dw", "synth_freq", "half_batch", "louder")
 W2_FAULTS = ("w2_value", "w2_grad")
@@ -116,9 +116,9 @@ def model(cfg: dict, device: torch.device, lower: bool = False,
 def first_update(cfg: dict, device: torch.device, weights, batches: Sequence[torch.Tensor],
                  dropout_seed: int, lower: bool = False, fault: Optional[str] = None,
                  draws_on: Optional[torch.device] = None) -> dict:
-    """``check.first_update`` of the reference, the control (``lower``) or
+    """``compare.first_update`` of the reference, the control (``lower``) or
     the reference with ``fault`` planted."""
-    return check.first_update(cfg, device, weights, batches, dropout_seed,
+    return compare.first_update(cfg, device, weights, batches, dropout_seed,
                               model=model(cfg, torch.device(device), lower, fault),
                               draws_on=draws_on)
 

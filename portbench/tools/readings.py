@@ -28,12 +28,14 @@ import numpy as np
 import torch
 
 from portbench import check, load, program, spec, trace
+from portbench.compare import pesto_sot as compare
 from portbench.tools import faults
 
 
 def program_readings(cell, seed: int, seconds: float, kernels_out=None, device="cuda",
-                     program_cls=program.Program):
-    work = load.KINDS[cell.traffic["kind"]](cell, seed, torch.device(device), program_cls)
+                     program_cls=None):
+    work = load.KINDS[cell.traffic["kind"]](cell, seed, torch.device(device),
+                                             program_cls or program.adapter(cell))
     t0 = time.perf_counter()
     work.setup()
     out = {"setup_s": time.perf_counter() - t0}
@@ -71,7 +73,7 @@ def plain_synth_gap(work) -> dict:
                                           torch.as_tensor(got["pitch_hz"], device=dev))
             plain = synth_render_plain(controls["amplitudes"], controls["frequencies"],
                                        synth.n_samples, synth.sample_rate)
-            gap = max(gap, check._max_gap(got["x_hat"], plain))
+            gap = max(gap, check.max_gap(got["x_hat"], plain))
     return {"xhat_port_plain_rel": gap}
 
 
@@ -83,20 +85,20 @@ def control_readings(cell, work) -> dict:
     out = {}
     if work.kind == "train":
         batches = work.check_batches()
-        ref = check.train_reference(cfg, dev, work.weights0, batches, work.dropout_seed)
-        tf32 = check.first_update(cfg, dev, work.weights0, batches, work.dropout_seed, lower=True)
+        ref = compare.train_reference(cfg, dev, work.weights0, batches, work.dropout_seed)
+        tf32 = compare.first_update(cfg, dev, work.weights0, batches, work.dropout_seed, lower=True)
 
         def read(model):
-            got = check.train_reference(cfg, dev, work.weights0, batches, work.dropout_seed,
+            got = compare.train_reference(cfg, dev, work.weights0, batches, work.dropout_seed,
                                         model=model)
-            return check.train_compare(ref, tf32, work.weights0, got["losses"],
+            return compare.train_compare(ref, tf32, work.weights0, got["losses"],
                                        got["first_grad"], got["params"])
 
         out["control"] = read(faults.model(cfg, dev, lower=True))
         for name in faults.applicable(cfg):
             out[name] = read(faults.model(cfg, dev, fault=name))
         return out
-    from portbench.reference import model as ref_model
+    from portbench.reference import pesto_sot as ref_model
 
     picks = work.sample()
     clips = [work.pool[i] for i in picks]
@@ -107,7 +109,7 @@ def control_readings(cell, work) -> dict:
             o = ctl_model.forward(work.weights0, torch.from_numpy(x).to(dev))
             served.append({k: (v if k == "x_hat" else v.cpu().numpy()) for k, v in o.items()})
     model = ref_model.Model(cfg, dev)
-    out["control"] = check.serve_compare(model, work.weights0, clips, served)
+    out["control"] = compare.serve_compare(model, work.weights0, clips, served)
     halves, altered = [], []
     for got in (work.latest[i] for i in picks):
         h = {k: (v.clone() if torch.is_tensor(v) else np.array(v)) for k, v in got.items()}
@@ -118,8 +120,8 @@ def control_readings(cell, work) -> dict:
         a = dict(got, x_hat=got["x_hat"].clone())
         a["x_hat"][0, 0] += 1e-3 * float(torch.max(torch.abs(a["x_hat"])))
         altered.append(a)
-    out["half_batch"] = check.serve_compare(model, work.weights0, clips, halves)
-    out["altered"] = check.serve_compare(model, work.weights0, clips, altered)
+    out["half_batch"] = compare.serve_compare(model, work.weights0, clips, halves)
+    out["altered"] = compare.serve_compare(model, work.weights0, clips, altered)
     return out
 
 

@@ -29,7 +29,7 @@ import torch
 
 from portbench import check, load, program, spec
 from portbench.reference import dsp
-from portbench.reference import model as ref_model
+from portbench.reference import pesto_sot as ref_model
 from portbench.tools import faults
 
 
@@ -66,7 +66,7 @@ def isolate_sot(cell, work, seed: int) -> dict:
     cot = torch.randn(sr.shape, generator=gen, device=dev)
     (gr,) = torch.autograd.grad(sr, xr, cot)
     (gp,) = torch.autograd.grad(sp, xp, cot)
-    out["transform_rel"] = check._max_gap(sp.detach(), sr.detach())
+    out["transform_rel"] = check.max_gap(sp.detach(), sr.detach())
     out["transform_vjp_rel"] = float((gp - gr).norm() / gr.norm())
 
     # W2 on the reference's spectra: value and gradient wrt the value side
@@ -114,7 +114,7 @@ def isolate_sot(cell, work, seed: int) -> dict:
 def seed_readings(cell, seed: int, isolate: bool) -> dict:
     dev = torch.device("cuda")
     cfg = cell.config
-    work = load.TrainEpoch(cell, seed, dev, program.Program)
+    work = load.TrainEpoch(cell, seed, dev, program.adapter(cell))
     work.setup()
     work.release()
     batch = work.check_batches()[:1]
@@ -168,7 +168,7 @@ def deep_readings(cell, seed: int) -> dict:
     cfg = cell.config
     progs = []
     for _ in range(2):
-        work = load.TrainEpoch(cell, seed, dev, program.Program)
+        work = load.TrainEpoch(cell, seed, dev, program.adapter(cell))
         work.setup()
         work.release()
         progs.append({k: v / 0.1 for k, v in work.first_moments.items()})
